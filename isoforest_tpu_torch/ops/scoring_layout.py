@@ -1,0 +1,43 @@
+"""The merged value plane every scorer reads (``isoforest_tpu/ops/scoring_layout.py``).
+
+Internal slots carry their split threshold, leaf slots ``depth +
+c(numInstances)`` (the exact path length a walk ending there credits,
+IsolationTree.scala:213-229) and holes 0. Slot depth is static in the
+implicit heap, so the merge moves the end-of-walk ``numInstances`` read and
+the logarithm out of every inner loop. The planes are built on the CPU and
+then moved to the forest's device, so every device reads the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..utils.math import height_of, leaf_value_table
+from .tree_growth import StandardForest
+
+
+class StandardLayout(NamedTuple):
+    """``value``: f32 [T, M] merged plane; ``feature``: i32 [T, M], -1 at
+    leaves and holes."""
+
+    value: torch.Tensor
+    feature: torch.Tensor
+
+
+def leaf_lut(num_instances: torch.Tensor, max_nodes: int) -> torch.Tensor:
+    """``depth + c(numInstances)`` at leaves, 0 elsewhere: ``f32[T, M]`` on the CPU."""
+    return leaf_value_table(num_instances, height_of(max_nodes))
+
+
+def pack_standard(forest: StandardForest) -> StandardLayout:
+    """Merged value plane and feature table, on the forest's device."""
+    feature = forest.feature.detach().to("cpu", torch.int32)
+    value = torch.where(
+        feature >= 0,
+        forest.threshold.detach().to("cpu", torch.float32),
+        leaf_lut(forest.num_instances, forest.max_nodes),
+    )
+    dev = forest.device
+    return StandardLayout(value=value.contiguous().to(dev), feature=feature.contiguous().to(dev))

@@ -1,0 +1,141 @@
+"""Scoring a matrix of rows (``isoforest_tpu/ops/traversal.py``).
+
+:func:`score_matrix` validates the width, chunks the rows and sends each
+chunk through one kernel: ``"walk"`` (O(h) node-id walk, :mod:`.walk`) or
+``"dense"`` (gather-free level walk, :mod:`.dense`). ``"auto"`` resolves to
+``"walk"`` for now: both kernels' times on the card are in PERF.md, and the
+choice waits for a measurement that separates them.
+
+:func:`standard_path_lengths` is the gather walk of the JAX package
+(``_walk_blocks`` + ``_walk_one_standard``): a reference for the tests, not
+a strategy.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from ..utils.math import score_from_path_length
+from ..utils.validation import check_non_finite, validate_feature_vector_size
+from . import dense, walk
+from .scoring_layout import StandardLayout, pack_standard
+from .tree_growth import StandardForest
+
+# strategy -> (table builder, kernel wrapper returning mean path lengths)
+_KERNELS = {
+    "walk": (walk.walk_tables, walk.path_lengths_walk),
+    "dense": (pack_standard, dense.dense_mean),
+}
+STRATEGIES = tuple(_KERNELS)
+
+# Rows per kernel launch: bounds the device memory of one chunk's input and
+# output (24 MB of X at F=6) while the 1M-row headline stays one launch.
+DEFAULT_CHUNK_ROWS = 1 << 20
+
+# Trees per block of the gather walk: it sums 8 trees, then adds the block
+# to the running total, and divides by T at the end (traversal.py:88-103).
+_TREE_BLOCK = 8
+
+
+def _walk_one_standard(layout: StandardLayout, t: int, X: torch.Tensor, h: int) -> torch.Tensor:
+    """Gather walk of one tree: the merged value of the row's exit leaf."""
+    value, feature = layout.value[t], layout.feature[t]
+    n = X.shape[0]
+    node = torch.zeros(n, dtype=torch.long, device=X.device)
+    out = torch.zeros(n, dtype=torch.float32, device=X.device)
+    done = torch.zeros(n, dtype=torch.bool, device=X.device)
+    for _ in range(h + 1):
+        v = value[node]
+        f = feature[node]
+        leaf = f < 0
+        out = torch.where(leaf & ~done, v, out)
+        xv = X.gather(1, f.clamp(min=0).long()[:, None])[:, 0]
+        node = torch.where(leaf | done, node, 2 * node + 1 + (xv >= v).long())
+        done = done | leaf
+    return out
+
+
+def standard_path_lengths(forest: StandardForest, X: torch.Tensor) -> torch.Tensor:
+    """Mean path length per row through the gather walk, ``f32[N]``."""
+    layout = pack_standard(forest)
+    total = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
+    for t0 in range(0, forest.num_trees, _TREE_BLOCK):
+        trees = range(t0, min(t0 + _TREE_BLOCK, forest.num_trees))
+        block = torch.stack([_walk_one_standard(layout, t, X, forest.height) for t in trees])
+        total = total + block.sum(dim=0)
+    return total / torch.tensor(float(forest.num_trees), dtype=torch.float32, device=X.device)
+
+
+def forest_min_features(forest: StandardForest) -> int:
+    """Smallest row width the forest can walk: ``1 + max(feature id)``."""
+    return max(int(forest.feature.max()) + 1, 0)
+
+
+def _resolve_strategy(strategy: str) -> str:
+    if strategy == "auto":
+        return "walk"
+    if strategy not in STRATEGIES:
+        raise ValueError(
+            f"unknown scoring strategy {strategy!r}; expected 'auto', "
+            + ", ".join(repr(s) for s in STRATEGIES)
+        )
+    return strategy
+
+
+def score_matrix(
+    forest: StandardForest,
+    X,
+    num_samples: int,
+    strategy: str = "auto",
+    chunk_size: Optional[int] = None,
+    expected_features: Optional[int] = None,
+    device=None,
+    cache: Optional[dict] = None,
+    nonfinite: str = "allow",
+) -> torch.Tensor:
+    """Outlier scores ``2^(-E[h]/c(num_samples))`` of an ``[N, F]`` matrix, ``f32[N]``.
+
+    ``X`` (numpy array or tensor) is moved to ``device`` (default: the card;
+    the forest is moved there too). ``strategy``: ``"walk"``, ``"dense"``
+    (trees up to height ``dense.DENSE_MAX_HEIGHT``) or ``"auto"``.
+    ``expected_features`` (the model's training width) makes a wrong-width
+    ``X`` a ValueError; a matrix narrower than the forest's highest split
+    feature is always refused. ``cache``: a dict the caller keeps per forest,
+    holding the kernel tables and the width floor between calls.
+    ``nonfinite``: NaN/inf policy (``"warn"``/``"raise"``/``"allow"``).
+    """
+    dev = resolve_device(device)
+    strategy = _resolve_strategy(strategy)
+    if isinstance(X, np.ndarray):
+        X = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32))
+    X = torch.as_tensor(X).to(dev, torch.float32).contiguous()
+    if X.dim() != 2:
+        raise ValueError(f"expected a 2-D [num_rows, num_features] matrix, got shape {tuple(X.shape)}")
+    check_non_finite(X, nonfinite)
+    cache = {} if cache is None else cache
+    if forest.device != dev:
+        forest = forest.to(dev)
+    if expected_features is not None:
+        validate_feature_vector_size(int(X.shape[1]), expected_features)
+    floor = cache.get("min_features")
+    if floor is None:
+        floor = cache["min_features"] = forest_min_features(forest)
+    if X.shape[1] < floor:
+        raise ValueError(
+            f"feature vector has {X.shape[1]} features, but the forest splits on "
+            f"feature index {floor - 1}: the model was trained on >= {floor} features"
+        )
+    build, run = _KERNELS[strategy]
+    tables = cache.get((strategy, dev))
+    if tables is None:
+        tables = cache[(strategy, dev)] = build(forest)
+    chunk = chunk_size or DEFAULT_CHUNK_ROWS
+    # chunks bound each launch; the scores take one pass, so chunking stays
+    # bitwise neutral even where exp2 rounds differently by vector position
+    parts = [run(X[i : i + chunk], tables) for i in range(0, X.shape[0], chunk)]
+    path_lengths = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.float32, device=dev)
+    return score_from_path_length(path_lengths, num_samples)
