@@ -27,10 +27,36 @@ Phases, each printing one JSON line:
 6. serving: ``model.score`` latency on batches of 1, 64 and 4,096 rows,
    with ``strategy="auto"`` (the walk) and ``"dense"``.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power-limit
-line, and last ``{"ok": true, "device": {...}}``. Any failed check raises
-and exits non-zero. With no CUDA card, or without the package beside it,
-the script prints no result and exits 2.
+Then the same for the extended (EIF) forest:
+
+7. ext_parity: load the JAX-written mammography EIF
+   (``tests/resources/torch_port/mammography_eif``, k = 6) on the card,
+   score the 11,183 rows with the walk and the dense strategy, and hold each
+   to its JAX counterpart's committed scores (``jax_walk_scores.npy``,
+   ``jax_pallas_scores.npy``; max |delta| <= 2e-6), both to the JAX gather
+   scores within the JAX package's own gap plus 2e-6, AUROC within 1e-3 of
+   the gather scores', equal labels away from the threshold;
+8. ext_breakdown: torch.profiler around one warm 1M-row EIF ``model.score``
+   per strategy;
+9. ext_full_size: the EIF main path, with every launch counter set to 0
+   just before and read just after: 1,000,000 seeded rows through
+   ``model.score`` with each strategy (the walk kernel and the sparse
+   dense-walk kernel), and 65,536 rows through ``score_matrix(...,
+   strategy="dense")`` of a seeded, fully extended forest at the high-dim
+   width (F = k = 274, 100 trees, height 8: the dense-table kernel); then
+   each kernel against its plain version (the dense-table kernel on 4,096
+   of its rows), CUDA-event timings and bounds;
+10. ext_edges: seeded synthetic EIF forests (k in {1, 6, 8, 13, 16, 17, 32,
+    33, 40}, F in {1, 6, 13, 17, 40, 274, 1000}, root-leaf trees, heights up to the
+    dense fence and one above, N in {1, 1023, 1025}, NaN and +-inf rows,
+    tie-heavy quantized rows): each kernel against its plain version;
+11. ext_serving: EIF ``model.score`` latency on batches of 1, 64 and 4,096
+    rows, ``"auto"`` and ``"dense"``.
+
+Then a ``{"kernels": [...]}`` line for all five kernels, the ``nvidia-smi``
+name and power-limit line, and last ``{"ok": true, "device": {...}}``. Any
+failed check raises and exits non-zero. With no CUDA card, or without the
+package beside it, the script prints no result and exits 2.
 """
 
 from __future__ import annotations
@@ -44,6 +70,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "resources" / "torch_port" / "mammography_std"
+EIF_FIXTURE = ROOT / "tests" / "resources" / "torch_port" / "mammography_eif"
 MAMMOGRAPHY = ROOT / "tests" / "resources" / "mammography.csv"
 
 # H100 SXM published peaks: HBM bytes/s and
@@ -52,6 +79,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
 FULL_ROWS = 1_000_000
+HIGH_DIM_ROWS = 65_536  # the F = 274 dense-table forest: rows cut from 1M for time
+HIGH_DIM_CHECK_ROWS = 4_096
 SEED = 0
 
 
@@ -86,6 +115,66 @@ def auroc(scores, labels) -> float:
     return float((ranks[pos].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
 
 
+def bound(nbytes: float, ops: float):
+    """The least time the card could take: ``(ms, "bytes" or "operations")``."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def profile_call(fn) -> dict:
+    """Device activity by name from torch.profiler around one synchronised
+    call, beside the call's wall time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "device_ms": sum(device.values()),
+            "device_busy_share": sum(device.values()) / wall_ms,
+            "htod_in_trace": any("HtoD" in name for name in device),
+            "top_device_ms": [[k[:80], v] for k, v in top]}
+
+
+def breakdown_phase(phase: str, model, X) -> dict:
+    """torch.profiler around one warm ``model.score(X)`` per strategy, beside
+    the host-to-device copy of X timed alone on CUDA events: where a trace
+    misses the copy (``htod_in_trace`` false), its busy share lacks it."""
+    import torch
+
+    copy_ms = time_ms(lambda: torch.from_numpy(X).to("cuda"))
+    return {"phase": phase, "rows": X.shape[0], "copy_alone_ms": copy_ms,
+            **{strategy: profile_call(lambda strategy=strategy: model.score(X, strategy=strategy))
+               for strategy in ("walk", "dense")}}
+
+
+def serving_latency(model, X, strategies) -> dict:
+    """Median and max host-clock latency of ``model.score`` (synchronised by
+    the copy back) over 21 calls, per strategy and batch of 1, 64, 4,096 rows."""
+    out = {}
+    for strategy in strategies:
+        for n in (1, 64, 4096):
+            batch = X[:n]
+            for _ in range(3):
+                model.score(batch, strategy=strategy)
+            lat = []
+            for _ in range(21):
+                t0 = time.perf_counter()
+                model.score(batch, strategy=strategy).cpu()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            out[f"{strategy}_{n}"] = {"median_ms": statistics.median(lat), "max_ms": max(lat)}
+    return out
+
+
 def time_ms(fn, reps: int = 7, inner: int = 1, warmup: int = 2) -> float:
     """Median over ``reps`` of CUDA-event time per call, ``inner`` calls back to back."""
     import torch
@@ -106,8 +195,248 @@ def time_ms(fn, reps: int = 7, inner: int = 1, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
+    """Phases 7-11 (the extended forest); returns the three EIF kernels'
+    entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import load_model, score_matrix
+    from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
+    from isoforest_tpu_torch.ops import dense, ext_dense, ext_walk
+    from isoforest_tpu_torch.ops.traversal import extended_path_lengths
+    from isoforest_tpu_torch.testing import random_extended_forest, rows
+    from isoforest_tpu_torch.utils.math import score_from_path_length
+
+    # 7. parity with the JAX package on the committed EIF fixture
+    model = load_model(str(EIF_FIXTURE / "model"))
+    require(type(model).__name__ == "ExtendedIsolationForestModel" and model.device.type == "cuda",
+            f"EIF model loaded as {type(model).__name__} on {model.device}")
+    thr = model.outlier_score_threshold
+    gather = np.load(EIF_FIXTURE / "jax_scores.npy")
+    gather_auc = auroc(gather, y_m)
+    parity = {"phase": "ext_parity", "rows": len(X_m), "trees": model.forest.num_trees,
+              "heap_slots": model.forest.max_nodes, "k": model.forest.k, "threshold": thr,
+              "jax_gather_auroc": gather_auc}
+    for strategy, own_file in (("walk", "jax_walk_scores.npy"), ("dense", "jax_pallas_scores.npy")):
+        own = np.load(EIF_FIXTURE / own_file)
+        s = model.score(X_m, strategy=strategy).cpu().numpy()
+        require(s.shape == own.shape and np.isfinite(s).all(), f"EIF {strategy}: bad scores")
+        err = float(np.abs(s - own).max())
+        jax_gap = float(np.abs(own - gather).max())
+        gather_err = float(np.abs(s - gather).max())
+        auc = auroc(s, y_m)
+        away = np.abs(s - thr) > 2e-6
+        labels = model.predict(torch.from_numpy(s)).numpy()
+        same = bool((labels[away] == (own[away] >= thr)).all())
+        parity[strategy] = {"counterpart": own_file, "max_abs_err": err, "vs_gather_max_abs": gather_err,
+                            "jax_own_gap_to_gather": jax_gap, "auroc": auc, "labels_equal": same,
+                            "outliers": int(labels.sum())}
+        require(err <= 2e-6, f"EIF {strategy}: max |score - {own_file}| = {err} > 2e-6")
+        require(gather_err <= jax_gap + 2e-6, f"EIF {strategy}: {gather_err} from the gather scores")
+        require(abs(auc - gather_auc) <= 1e-3, f"EIF {strategy}: AUROC {auc} vs gather {gather_auc}")
+        require(same, f"EIF {strategy}: labels differ from the JAX package's")
+    emit(parity)
+
+    # 8. where one warm 1M-row EIF model.score spends its time (traced
+    # before the plain references below fill the card's memory)
+    emit(breakdown_phase("ext_breakdown", model, X_big))
+
+    # 9. the EIF main path: counters at 0 just before, read just after
+    f5 = extended_forest_from_arrays(*random_extended_forest(rng, 100, 8, 274, 274, split_p=1.0))
+    X5 = torch.from_numpy(rows(rng, HIGH_DIM_ROWS, 274)).to(dev)
+    counters = (ext_walk.ext_walk_sum, ext_dense.ext_sparse_mean, ext_dense.ext_dense_mean)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    s_walk = model.score(X_big, strategy="walk")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s_dense = model.score(X_big, strategy="dense")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    s_high = score_matrix(f5, X5, 256, strategy="dense")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {c.__name__: c.launches for c in counters}
+    require(all(v > 0 for v in launches.values()), f"an EIF kernel did not launch: {launches}")
+    for name, s, n_rows in (("walk", s_walk, FULL_ROWS), ("dense", s_dense, FULL_ROWS),
+                            ("high_dim_dense", s_high, HIGH_DIM_ROWS)):
+        require(tuple(s.shape) == (n_rows,) and bool(torch.isfinite(s).all())
+                and bool(((s > 0) & (s <= 1)).all()), f"EIF {name}: bad full-size scores")
+
+    Xd = torch.from_numpy(X_big).to(dev)
+    wt = ext_walk.walk_tables_extended(model.forest)
+    st = ext_dense.sparse_hyperplane_tables(model.forest)
+    dt = ext_dense.dense_hyperplane_table(f5)
+    X5c = X5[:HIGH_DIM_CHECK_ROWS].contiguous()
+
+    def chunked(plain, X, tables, rows_per=1 << 17):
+        """The plain version, row chunk by row chunk (exact: rows are
+        independent), so its float64 temporaries stay small."""
+        return torch.cat([plain(X[i : i + rows_per], tables) for i in range(0, X.shape[0], rows_per)])
+
+    def timed_once(fn):
+        """``(result, ms)`` of one call, on CUDA events."""
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    # the plain versions are slow references: each runs once, timed, and its
+    # result is what the kernel is held to
+    walk_plain, walk_plain_ms = timed_once(lambda: chunked(ext_walk.ext_walk_sum_plain, Xd, wt))
+    sparse_plain, sparse_plain_ms = timed_once(lambda: chunked(ext_dense.ext_sparse_mean_plain, Xd, st))
+    dense_plain, dense_plain_ms = timed_once(lambda: ext_dense.ext_dense_mean_plain(X5c, dt))
+    walk_err = float((ext_walk.ext_walk_sum(Xd, wt) - walk_plain).abs().max())
+    sparse_err = float((ext_dense.ext_sparse_mean(Xd, st) - sparse_plain).abs().max())
+    dense_err = float((ext_dense.ext_dense_mean(X5c, dt) - dense_plain).abs().max())
+    require(walk_err <= 1e-5, f"EIF walk kernel vs plain: {walk_err}")
+    require(sparse_err <= 1e-5, f"EIF sparse kernel vs plain: {sparse_err}")
+    require(dense_err <= 1e-5, f"EIF dense-table kernel vs plain: {dense_err}")
+    # the card's walk scores against the port's gather walk on a slice: equal
+    # but where a tie routes the other way under the two dot orders
+    ref = score_from_path_length(extended_path_lengths(model.forest, Xd[:4096]), model.num_samples)
+    gather_gap = float((ref - s_walk[:4096]).abs().max())
+    require(gather_gap < 0.05, f"EIF walk scores vs gather reference: {gather_gap}")
+    times = {
+        "walk_ms": time_ms(lambda: ext_walk.ext_walk_sum(Xd, wt), inner=10),
+        "walk_plain_ms": walk_plain_ms,
+        "sparse_ms": time_ms(lambda: ext_dense.ext_sparse_mean(Xd, st), inner=3),
+        "sparse_plain_ms": sparse_plain_ms,
+        "dense_ms": time_ms(lambda: ext_dense.ext_dense_mean(X5, dt), reps=3, warmup=1),
+        "dense_plain_ms": dense_plain_ms,
+    }
+
+    # Bounds, from this run's inputs, counted as for the standard kernels:
+    # the function needs, per internal slot a row visits, one compare and k
+    # multiply-adds (2 operations each), plus one add per (row, tree), and
+    # for a mean one divide per row; bytes are X read once, the kernel's
+    # tables read once and the f32 result written once. The dense algorithm
+    # evaluates every internal slot of every tree; that count, at peak, is
+    # printed as *_algorithm_ops_ms beside the bound and not as it.
+    def visits(forest, X):
+        """Internal slots the rows visit (dots in float32 by torch.sum: a
+        tie may route one ulp otherwise than in a kernel, a few visits)."""
+        tables = ext_walk.walk_tables_extended(forest)
+        internal = forest.is_internal
+        total = torch.zeros((), dtype=torch.float64, device=dev)
+        for t in range(forest.num_trees):
+            node = torch.zeros(X.shape[0], dtype=torch.long, device=dev)
+            for _ in range(forest.height):
+                inside = internal[t][node]
+                total += inside.sum()
+                dot = (X.gather(1, tables.index[t][node].long()) * tables.weight[t][node]).sum(dim=1)
+                node = torch.where(inside, 2 * node + 1 + (dot >= tables.offset[t][node]).long(), node)
+        return float(total)
+
+    def nbytes(*fields):
+        """Bytes of the tensors among ``fields`` (tables also carry ints)."""
+        return float(sum(a.numel() * a.element_size() for a in fields if isinstance(a, torch.Tensor)))
+
+    n, f = Xd.shape
+    t_n, k = model.forest.num_trees, model.forest.k
+    visited = visits(model.forest, Xd)
+    n5, t5, k5 = X5.shape[0], f5.num_trees, f5.k
+    visited5 = visits(f5, X5)
+    walk_bound, walk_by = bound(nbytes(Xd, *wt) + n * 4, visited * (1 + 2 * k) + n * t_n)
+    sparse_bound, sparse_by = bound(nbytes(Xd, *st) + n * 4, visited * (1 + 2 * k) + n * t_n + n)
+    dense_bound, dense_by = bound(nbytes(X5, *dt) + n5 * 4, visited5 * (1 + 2 * k5) + n5 * t5 + n5)
+    slots = float(model.forest.is_internal.sum())
+    slots5 = float(f5.is_internal.sum())
+    sparse_algo_ms = (n * slots * (1 + 2 * k) + 2.0 * n * t_n) / PEAK_F32_OPS_PER_S * 1e3
+    dense_algo_ms = (n5 * slots5 * (1 + 2 * k5) + 2.0 * n5 * t5) / PEAK_F32_OPS_PER_S * 1e3
+    emit({"phase": "ext_full_size", "rows": n, "features": f, "trees": t_n, "k": k,
+          "heap_slots": model.forest.max_nodes, "high_dim": {"rows": n5, "features": 274, "k": k5, "trees": t5,
+                                                             "height": f5.height, "check_rows": X5c.shape[0]},
+          "launches": launches, "score_walk_s": t1 - t0, "score_dense_s": t2 - t1, "score_high_dim_s": t3 - t2,
+          "walk_vs_dense_max_abs_score": float((s_walk - s_dense).abs().max()),
+          "walk_vs_gather_max_abs_score_4096": gather_gap,
+          "walk_kernel_vs_plain_max_abs_sum": walk_err,
+          "sparse_kernel_vs_plain_max_abs_mean": sparse_err,
+          "dense_kernel_vs_plain_max_abs_mean": dense_err,
+          "mean_internal_visits_per_row_tree": visited / (n * t_n),
+          "high_dim_mean_internal_visits_per_row_tree": visited5 / (n5 * t5),
+          **times,
+          "walk_rows_per_s": n / times["walk_ms"] * 1e3, "sparse_rows_per_s": n / times["sparse_ms"] * 1e3,
+          "dense_rows_per_s": n5 / times["dense_ms"] * 1e3,
+          "walk_bound_ms": walk_bound, "walk_bound_by": walk_by,
+          "sparse_bound_ms": sparse_bound, "sparse_bound_by": sparse_by,
+          "dense_bound_ms": dense_bound, "dense_bound_by": dense_by,
+          "sparse_algorithm_ops_ms": sparse_algo_ms, "dense_algorithm_ops_ms": dense_algo_ms})
+
+    # 10. edges: synthetic EIF forests, each kernel against its plain version
+    cases = [
+        {"features": 1, "k": 1, "height": 8, "rows": 1025, "data": "nonfinite"},
+        {"features": 6, "k": 6, "height": dense.DENSE_MAX_HEIGHT, "rows": 1025, "data": "ties"},
+        {"features": 6, "k": 6, "height": dense.DENSE_MAX_HEIGHT + 1, "rows": 1023, "data": "ties"},
+        {"features": 13, "k": 13, "height": 6, "rows": 1023, "data": "ties"},
+        {"features": 17, "k": 16, "height": 6, "rows": 1025, "data": "nonfinite"},
+        {"features": 17, "k": 17, "height": 6, "rows": 1023, "data": "nonfinite"},
+        {"features": 40, "k": 32, "height": 5, "rows": 1025, "data": "ties"},
+        {"features": 40, "k": 33, "height": 5, "rows": 1023, "data": "nonfinite"},
+        {"features": 274, "k": 33, "height": 8, "rows": 1, "data": "nonfinite"},
+        # rows too wide for the dense-table kernel's shared-memory tile: x[f] from L1
+        {"features": 1000, "k": 8, "height": 6, "rows": 1023, "data": "nonfinite"},
+        {"features": 1000, "k": 40, "height": 4, "rows": 1025, "data": "nonfinite"},
+    ]
+    edges = []
+    for case in cases:
+        f_e = case["features"]
+        Xe = (rng.integers(0, 4, size=(case["rows"], f_e)).astype(np.float32) if case["data"] == "ties"
+              else rows(rng, case["rows"], f_e))
+        arrays = random_extended_forest(rng, 13, case["height"], f_e, case["k"], split_p=0.85,
+                                        intercepts=Xe[:32], unused_p=0.2)
+        forest = extended_forest_from_arrays(*arrays)
+        xe = torch.from_numpy(Xe).to(dev)
+        wte = ext_walk.walk_tables_extended(forest)
+        w_err = float((ext_walk.ext_walk_sum(xe, wte) - ext_walk.ext_walk_sum_plain(xe, wte)).abs().max())
+        row = dict(case, trees=13, walk_vs_plain=w_err)
+        require(w_err <= 1e-5, f"EIF walk edge case {row}")
+        tables = ext_dense.hyperplane_tables(forest)
+        kernel = ext_dense.ext_sparse_mean if case["k"] <= ext_dense.SPARSE_K_MAX else ext_dense.ext_dense_mean
+        plain = (ext_dense.ext_sparse_mean_plain if case["k"] <= ext_dense.SPARSE_K_MAX
+                 else ext_dense.ext_dense_mean_plain)
+        if case["height"] <= dense.DENSE_MAX_HEIGHT:
+            d_err = float((kernel(xe, tables) - plain(xe, tables)).abs().max())
+            row[f"{kernel.__name__}_vs_plain"] = d_err
+            require(d_err <= 1e-5, f"EIF dense edge case {row}")
+        else:
+            try:
+                kernel(xe, tables)
+            except ValueError as exc:
+                row["dense_fence"] = str(exc)
+            else:
+                fail(f"EIF dense kernel accepted height {case['height']}")
+        edges.append(row)
+    emit({"phase": "ext_edges", "cases": edges})
+
+    # 11. serving-sized batches through the EIF model.score
+    emit({"phase": "ext_serving", "latency": serving_latency(model, X_big, ("auto", "dense"))})
+
+    walk_src, dense_src = "isoforest_tpu_torch/csrc/ext_walk.cu", "isoforest_tpu_torch/csrc/ext_dense.cu"
+    entry = {"route": "cuda", "library_ms": None}
+    return [
+        {**entry, "name": "ext_walk_sum", "source": walk_src,
+         "replaces": "isoforest_tpu/ops/pallas_walk.py:345", "launches": launches["ext_walk_sum"],
+         "max_abs_err": walk_err, "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
+         "bound_ms": walk_bound, "bound_by": walk_by, "rows": n, "plain_rows": n},
+        {**entry, "name": "ext_sparse_mean", "source": dense_src, "replaces": "isoforest_tpu/ops/pallas_traversal.py:303",
+         "launches": launches["ext_sparse_mean"], "max_abs_err": sparse_err, "ms": times["sparse_ms"],
+         "plain_ms": times["sparse_plain_ms"], "bound_ms": sparse_bound, "bound_by": sparse_by,
+         "rows": n, "plain_rows": n},
+        {**entry, "name": "ext_dense_mean", "source": dense_src, "replaces": "isoforest_tpu/ops/pallas_traversal.py:330",
+         "launches": launches["ext_dense_mean"], "max_abs_err": dense_err, "ms": times["dense_ms"],
+         "plain_ms": times["dense_plain_ms"], "bound_ms": dense_bound, "bound_by": dense_by,
+         "rows": n5, "plain_rows": X5c.shape[0]},
+    ]
+
+
 def main() -> int:
-    if not (ROOT / "isoforest_tpu_torch").is_dir() or not FIXTURE.is_dir():
+    if not (ROOT / "isoforest_tpu_torch").is_dir() or not FIXTURE.is_dir() or not EIF_FIXTURE.is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     try:
@@ -234,10 +563,6 @@ def main() -> int:
     dense_bytes = x_bytes + out_bytes + 2 * t_n * m * 4
     path_ops = float(visited) + n * t_n
 
-    def bound(nbytes, ops):
-        by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
-        return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
-
     walk_bound, walk_by = bound(walk_bytes, path_ops)
     dense_bound, dense_by = bound(dense_bytes, path_ops + n)
     dense_algorithm_ops_ms = (float(n) * t_n * m + 2.0 * n * t_n) / PEAK_F32_OPS_PER_S * 1e3
@@ -256,25 +581,7 @@ def main() -> int:
 
     # where one full-size model.score call spends its time: device activity
     # by name from torch.profiler, beside the call's wall time
-    breakdown = {}
-    for strategy in ("walk", "dense"):
-        model.score(X_big, strategy=strategy)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.score(X_big, strategy=strategy)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        device = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
-        breakdown[strategy] = {"wall_ms": wall_ms, "device_ms": sum(device.values()),
-                               "device_busy_share": sum(device.values()) / wall_ms,
-                               "top_device_ms": [[k[:80], v] for k, v in top]}
-    emit({"phase": "breakdown", "rows": n, **breakdown})
+    emit(breakdown_phase("breakdown", model, X_big))
 
     # 5. edges: synthetic forests, kernel against plain version
     cases = [
@@ -314,24 +621,15 @@ def main() -> int:
     emit({"phase": "edges", "cases": edges})
 
     # 6. serving-sized batches through model.score (host clock, synchronised)
-    serving = {}
-    for strategy in ("auto", "dense"):
-        for rows in (1, 64, 4096):
-            batch = X_big[:rows]
-            for _ in range(3):
-                model.score(batch, strategy=strategy)
-            lat = []
-            for _ in range(21):
-                t0 = time.perf_counter()
-                model.score(batch, strategy=strategy).cpu()
-                lat.append((time.perf_counter() - t0) * 1e3)
-            serving[f"{strategy}_{rows}"] = {"median_ms": statistics.median(lat), "max_ms": max(lat)}
+    serving = serving_latency(model, X_big, ("auto", "dense"))
     emit({"phase": "serving", "latency": serving})
 
     # end-to-end sanity: the card's scores agree with the gather reference on
     # a slice of the full-size rows
     ref = score_from_path_length(standard_path_lengths(model.forest, Xd[:4096]), model.num_samples)
     require(float((ref - s_walk[:4096]).abs().max()) <= 2e-6, "walk scores vs gather reference")
+
+    ext_kernels = eif_phases(dev, rng, X_m, y_m, X_big)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/walk.cu",
@@ -342,6 +640,7 @@ def main() -> int:
          "replaces": "isoforest_tpu/ops/pallas_traversal.py:277", "launches": launches["dense"],
          "max_abs_err": dense_err, "ms": times["dense_ms"], "plain_ms": times["dense_plain_ms"],
          "bound_ms": dense_bound, "bound_by": dense_by, "library_ms": None},
+        *ext_kernels,
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -1,5 +1,6 @@
 """Fitted models."""
 
+from .extended import ExtendedIsolationForestModel
 from .isolation_forest import IsolationForestModel
 
-__all__ = ["IsolationForestModel"]
+__all__ = ["ExtendedIsolationForestModel", "IsolationForestModel"]

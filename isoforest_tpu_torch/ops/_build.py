@@ -3,8 +3,9 @@
 Each source in ``isoforest_tpu_torch/csrc/`` has a plain C interface and
 becomes its own shared library for ``sm_90a``, built at first use into
 ``build/isoforest_tpu_torch/`` beside the package (the ``build/`` directory
-is git-ignored). A library's file name carries a hash of its source, so an
-edited kernel is rebuilt and a stale one never loaded. Nothing here runs at
+is git-ignored). A library's file name carries a hash of its source and of
+the nvcc flags, so an edited kernel or a change of flags is rebuilt and a
+stale library never loaded. Nothing here runs at
 import: the CPU-only test machine imports every module.
 """
 
@@ -17,13 +18,14 @@ import pathlib
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, Sequence
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "isoforest_tpu_torch"
 
-SOURCES = {"walk": "walk.cu", "dense": "dense.cu"}
+SOURCES = {"walk": "walk.cu", "dense": "dense.cu", "ext_walk": "ext_walk.cu", "ext_dense": "ext_dense.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,8 +47,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where source ``name`` built with ``NVCC_FLAGS`` lives: the file name
+    carries a hash of both."""
+    digest = hashlib.sha256()
+    digest.update((CSRC_DIR / SOURCES[name]).read_bytes())
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES), ptxas_verbose: bool = False) -> Dict[str, dict]:
@@ -66,15 +72,25 @@ def build(names: Iterable[str] = tuple(SOURCES), ptxas_verbose: bool = False) ->
                "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                        tmp, target, time.perf_counter())
+
+    def finish(item):
+        """Wait for one nvcc; its seconds end when it ends, not when the
+        ones before it in the loop do."""
+        name, (proc, tmp, target, t0) = item
+        log, _ = proc.communicate()
+        return name, proc.returncode, log, time.perf_counter() - t0
+
     report = {}
     failed = []
-    for name, (proc, tmp, target, t0) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {SOURCES[name]} (exit {proc.returncode}):\n{log}")
+    with ThreadPoolExecutor(max_workers=max(len(procs), 1)) as pool:
+        finished = list(pool.map(finish, procs.items()))
+    for name, returncode, log, seconds in finished:
+        if returncode != 0:
+            failed.append(f"nvcc failed for {SOURCES[name]} (exit {returncode}):\n{log}")
             continue
+        _, tmp, target, _ = procs[name]
         os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
-        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        report[name] = {"seconds": seconds, "log": log}
     if failed:
         raise RuntimeError("\n".join(failed))
     return report

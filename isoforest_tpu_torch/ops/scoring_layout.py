@@ -1,6 +1,7 @@
 """The merged value plane every scorer reads (``isoforest_tpu/ops/scoring_layout.py``).
 
-Internal slots carry their split threshold, leaf slots ``depth +
+Internal slots carry their split threshold (an extended forest's: its
+hyperplane offset), leaf slots ``depth +
 c(numInstances)`` (the exact path length a walk ending there credits,
 IsolationTree.scala:213-229) and holes 0. Slot depth is static in the
 implicit heap, so the merge moves the end-of-walk ``numInstances`` read and
@@ -15,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.math import height_of, leaf_value_table
+from .ext_growth import ExtendedForest
 from .tree_growth import StandardForest
 
 
@@ -41,3 +43,37 @@ def pack_standard(forest: StandardForest) -> StandardLayout:
     )
     dev = forest.device
     return StandardLayout(value=value.contiguous().to(dev), feature=feature.contiguous().to(dev))
+
+
+class PackedExtendedLayout(NamedTuple):
+    """Extended-forest analogue (``scoring_layout.py:110``): ``value`` f32
+    [T, M] merges the hyperplane offset with the leaf LUT exactly like the
+    standard layout; ``indices`` i32 / ``weights`` f32 [T, M, k] are the
+    forest's hyperplanes. (The reference packs the three into one
+    ``1 + 2k``-float record per node for one coalesced TPU gather; the
+    port's walks read the planes.)"""
+
+    value: torch.Tensor
+    indices: torch.Tensor
+    weights: torch.Tensor
+
+    @property
+    def k(self) -> int:
+        return self.indices.shape[2]
+
+
+def pack_extended(forest: ExtendedForest) -> PackedExtendedLayout:
+    """Merged value plane and hyperplanes, on the forest's device
+    (``pack_extended``, ``scoring_layout.py:162``)."""
+    indices = forest.indices.detach().to("cpu", torch.int32)
+    value = torch.where(
+        indices[..., 0] >= 0,
+        forest.offset.detach().to("cpu", torch.float32),
+        leaf_lut(forest.num_instances, forest.max_nodes),
+    )
+    dev = forest.device
+    return PackedExtendedLayout(
+        value=value.contiguous().to(dev),
+        indices=indices.contiguous().to(dev),
+        weights=forest.weights.detach().to(dev, torch.float32).contiguous(),
+    )

@@ -1,14 +1,20 @@
 """Scoring a matrix of rows (``isoforest_tpu/ops/traversal.py``).
 
 :func:`score_matrix` validates the width, chunks the rows and sends each
-chunk through one kernel: ``"walk"`` (O(h) node-id walk, :mod:`.walk`) or
-``"dense"`` (gather-free level walk, :mod:`.dense`). ``"auto"`` resolves to
-``"walk"`` for now: both kernels' times on the card are in PERF.md, and the
-choice waits for a measurement that separates them.
+chunk through one kernel, chosen by the forest's type and the strategy:
 
-:func:`standard_path_lengths` is the gather walk of the JAX package
-(``_walk_blocks`` + ``_walk_one_standard``): a reference for the tests, not
-a strategy.
+* standard forest: ``"walk"`` (O(h) node-id walk, :mod:`.walk`) or
+  ``"dense"`` (gather-free level walk, :mod:`.dense`);
+* extended forest: ``"walk"`` (:mod:`.ext_walk`, any k) or ``"dense"``
+  (:mod:`.ext_dense`: the sparse kernel for k <= 32, the dense-table kernel
+  above).
+
+``"auto"`` resolves to ``"walk"`` for both: it beat the dense kernels at
+every batch size measured on the card (PERF.md).
+
+:func:`standard_path_lengths` and :func:`extended_path_lengths` are the
+gather walks of the JAX package (``_walk_blocks`` + ``_walk_one_standard``
+/ ``_walk_one_extended``): references for the tests, not strategies.
 """
 
 from __future__ import annotations
@@ -19,16 +25,21 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.math import score_from_path_length
+from ..utils.math import fma_f32, score_from_path_length
 from ..utils.validation import check_non_finite, validate_feature_vector_size
-from . import dense, walk
-from .scoring_layout import StandardLayout, pack_standard
+from . import dense, ext_dense, ext_walk, walk
+from .ext_growth import ExtendedForest
+from .scoring_layout import PackedExtendedLayout, StandardLayout, pack_extended, pack_standard
 from .tree_growth import StandardForest
 
 # strategy -> (table builder, kernel wrapper returning mean path lengths)
 _KERNELS = {
     "walk": (walk.walk_tables, walk.path_lengths_walk),
     "dense": (pack_standard, dense.dense_mean),
+}
+_EXT_KERNELS = {
+    "walk": (ext_walk.walk_tables_extended, ext_walk.path_lengths_ext_walk),
+    "dense": (ext_dense.hyperplane_tables, ext_dense.path_lengths_ext_dense),
 }
 STRATEGIES = tuple(_KERNELS)
 
@@ -70,9 +81,50 @@ def standard_path_lengths(forest: StandardForest, X: torch.Tensor) -> torch.Tens
     return total / torch.tensor(float(forest.num_trees), dtype=torch.float32, device=X.device)
 
 
-def forest_min_features(forest: StandardForest) -> int:
-    """Smallest row width the forest can walk: ``1 + max(feature id)``."""
-    return max(int(forest.feature.max()) + 1, 0)
+def _walk_one_extended(layout: PackedExtendedLayout, t: int, X: torch.Tensor, h: int) -> torch.Tensor:
+    """Gather walk of one EIF tree: the merged value of the row's exit leaf.
+
+    The dot is ``fma(x[idx_q], w_q, d)`` from ``d = 0`` for q = 0..k-1: what
+    XLA:CPU makes of the reference's ``jnp.sum(xv * w, axis=1)`` up to at
+    least k = 24 (measured; at k = 33 and 40 it reduces in another order).
+    Unused coordinates (``-1``) read ``x[0]``, as in the reference.
+    """
+    value, indices, weights = layout.value[t], layout.indices[t], layout.weights[t]
+    n = X.shape[0]
+    node = torch.zeros(n, dtype=torch.long, device=X.device)
+    out = torch.zeros(n, dtype=torch.float32, device=X.device)
+    done = torch.zeros(n, dtype=torch.bool, device=X.device)
+    for _ in range(h + 1):
+        v = value[node]
+        sub = indices[node]
+        w = weights[node]
+        leaf = sub[:, 0] < 0
+        out = torch.where(leaf & ~done, v, out)
+        xv = X.gather(1, sub.clamp(min=0).long())
+        dot = torch.zeros(n, dtype=torch.float32, device=X.device)
+        for q in range(layout.k):
+            dot = fma_f32(xv[:, q], w[:, q], dot)
+        node = torch.where(leaf | done, node, 2 * node + 1 + (dot >= v).long())
+        done = done | leaf
+    return out
+
+
+def extended_path_lengths(forest: ExtendedForest, X: torch.Tensor) -> torch.Tensor:
+    """Mean path length per row through the EIF gather walk, ``f32[N]``."""
+    layout = pack_extended(forest)
+    total = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
+    for t0 in range(0, forest.num_trees, _TREE_BLOCK):
+        trees = range(t0, min(t0 + _TREE_BLOCK, forest.num_trees))
+        block = torch.stack([_walk_one_extended(layout, t, X, forest.height) for t in trees])
+        total = total + block.sum(dim=0)
+    return total / torch.tensor(float(forest.num_trees), dtype=torch.float32, device=X.device)
+
+
+def forest_min_features(forest) -> int:
+    """Smallest row width the forest can walk: ``1 + max(feature id)``
+    (for an extended forest, of its hyperplane coordinates)."""
+    ids = forest.indices if isinstance(forest, ExtendedForest) else forest.feature
+    return max(int(ids.max()) + 1, 0) if ids.numel() else 0
 
 
 def _resolve_strategy(strategy: str) -> str:
@@ -87,7 +139,7 @@ def _resolve_strategy(strategy: str) -> str:
 
 
 def score_matrix(
-    forest: StandardForest,
+    forest,
     X,
     num_samples: int,
     strategy: str = "auto",
@@ -99,6 +151,7 @@ def score_matrix(
 ) -> torch.Tensor:
     """Outlier scores ``2^(-E[h]/c(num_samples))`` of an ``[N, F]`` matrix, ``f32[N]``.
 
+    ``forest``: a :class:`StandardForest` or an :class:`ExtendedForest`.
     ``X`` (numpy array or tensor) is moved to ``device`` (default: the card;
     the forest is moved there too). ``strategy``: ``"walk"``, ``"dense"``
     (trees up to height ``dense.DENSE_MAX_HEIGHT``) or ``"auto"``.
@@ -129,7 +182,7 @@ def score_matrix(
             f"feature vector has {X.shape[1]} features, but the forest splits on "
             f"feature index {floor - 1}: the model was trained on >= {floor} features"
         )
-    build, run = _KERNELS[strategy]
+    build, run = (_EXT_KERNELS if isinstance(forest, ExtendedForest) else _KERNELS)[strategy]
     tables = cache.get((strategy, dev))
     if tables is None:
         tables = cache[(strategy, dev)] = build(forest)

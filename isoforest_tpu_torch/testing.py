@@ -1,7 +1,8 @@
 """Seeded synthetic heap forests and rows, for the port's tests and ``chip_smoke.py``.
 
 numpy only: the arrays feed both :func:`isoforest_tpu_torch.io.interop.forest_from_arrays`
-and the JAX package's ``StandardForest``, so the two packages walk the same forest.
+(or ``extended_forest_from_arrays``) and the JAX package's ``StandardForest``
+(or ``ExtendedForest``), so the two packages walk the same forest.
 """
 
 from __future__ import annotations
@@ -45,3 +46,61 @@ def rows(rng, n: int, features: int) -> np.ndarray:
     X[1::11, features - 1] = np.inf
     X[2::13, features // 2] = -np.inf
     return X
+
+
+def random_extended_forest(
+    rng,
+    trees: int,
+    height: int,
+    features: int,
+    k: int,
+    split_p: float = 0.8,
+    sizes=None,
+    intercepts=None,
+    unused_p: float = 0.0,
+):
+    """A valid extended heap forest ``(indices, weights, offset,
+    num_instances)``: ``[trees, M, k]``, ``[trees, M, k]``, ``[trees, M]``
+    and ``[trees, M]`` with ``M = 2^(height+1) - 1``. Tree 0 is a root
+    leaf; the other roots split, each deeper node with probability
+    ``split_p`` down to ``height``.
+
+    Each internal node takes ``k`` distinct coordinates (``k <= features``)
+    in ascending order, unit Gaussian weights, and the offset ``w . p``
+    (float32 FMA chain, as growth's reduce) of an intercept point ``p``: a
+    random row of ``intercepts`` when given, else a half-integer point in
+    [-2, 2]. Rows equal to ``p`` on the node's coordinates then tie the
+    offset exactly. With probability ``unused_p`` a node keeps only some
+    of its coordinates and marks the rest unused (index -1, weight 0), as a
+    loaded model's narrower nodes do. Leaf sizes are drawn from 0..299, or
+    from ``sizes`` when given."""
+    if not 1 <= k <= features:
+        raise ValueError(f"need 1 <= k <= features, got k={k}, features={features}")
+    m = 2 ** (height + 1) - 1
+    indices = np.full((trees, m, k), -1, np.int32)
+    weights = np.zeros((trees, m, k), np.float32)
+    points = np.zeros((trees, m, k), np.float32)
+    num_instances = np.full((trees, m), -1, np.int32)
+    for t in range(trees):
+        stack = [(0, 0)]
+        while stack:
+            slot, depth = stack.pop()
+            if t > 0 and depth < height and (slot == 0 or rng.random() < split_p):
+                used = k if rng.random() >= unused_p else int(rng.integers(1, k + 1))
+                coords = np.sort(rng.choice(features, size=used, replace=False)).astype(np.int32)
+                w = rng.normal(size=used).astype(np.float32)
+                w = (w / np.float32(np.sqrt(np.sum(w * w, dtype=np.float32)))).astype(np.float32)
+                if intercepts is None:
+                    point = (rng.integers(-4, 5, size=features) / 2).astype(np.float32)
+                else:
+                    point = np.asarray(intercepts, np.float32)[rng.integers(len(intercepts))]
+                indices[t, slot, :used] = coords
+                weights[t, slot, :used] = w
+                points[t, slot, :used] = point[coords]
+                stack += [(2 * slot + 1, depth + 1), (2 * slot + 2, depth + 1)]
+            else:
+                num_instances[t, slot] = rng.integers(0, 300) if sizes is None else rng.choice(sizes)
+    offset = np.zeros((trees, m), np.float32)
+    for q in range(k):  # d = fma(p_q, w_q, d), each step through float64
+        offset = (points[..., q].astype(np.float64) * weights[..., q] + offset).astype(np.float32)
+    return indices, weights, offset, num_instances

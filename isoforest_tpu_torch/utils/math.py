@@ -65,6 +65,28 @@ def score_from_path_length(mean_path_length: torch.Tensor, num_samples: int) -> 
     return torch.exp2(-pl / c)
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors with one rounding, as CUDA's
+    ``__fmaf_rn`` and the FMA that XLA:CPU contracts a multiply-add into.
+
+    The product is exact in float64 and the sum's rounding error is
+    recovered with TwoSum, so the float64 sum rounds to float32 correctly
+    even where it lands exactly halfway between two float32 values (where
+    a plain float64 emulation would round twice).
+    """
+    a64, b64, c64 = a.double(), b.double(), c.double()
+    p = a64 * b64
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    r = s.float()
+    d = s - r.double()
+    other = torch.nextafter(r, torch.where(d > 0, float("inf"), float("-inf")).float())
+    halfway = torch.isfinite(r) & (d != 0) & (2 * d == other.double() - r.double())
+    # at a halfway s, the exact sum lies past s (away from r) iff err has d's sign
+    return torch.where(halfway & (err != 0) & ((err > 0) == (d > 0)), other, r)
+
+
 def slot_depths(max_nodes: int) -> torch.Tensor:
     """Depth of every heap slot, ``f32[M]``."""
     h = height_of(max_nodes)

@@ -1,4 +1,4 @@
-"""Hyper-parameters of the standard forest, with the reference's names,
+"""Hyper-parameters of the standard and extended forests, with the reference's names,
 defaults and validators (``isoforest_tpu/utils/params.py``;
 ``core/IsolationForestParamsBase.scala:8-110``).
 
@@ -8,7 +8,9 @@ round-trips.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 # camelCase names of the persisted paramMap
 # (core/IsolationForestModelReadWriteUtils.scala:163-187).
@@ -87,3 +89,44 @@ class IsolationForestParams:
                 value = float(value)
             kw[field] = value
         return cls(**kw)
+
+
+@dataclass(frozen=True)
+class ExtendedIsolationForestParams(IsolationForestParams):
+    """Adds ``extensionLevel`` (>= 0, unset by default; resolved at fit to
+    ``numFeatures - 1`` = fully extended, ExtendedIsolationForest.scala:56-69)."""
+
+    extension_level: Optional[int] = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.extension_level is not None and (
+            not isinstance(self.extension_level, int) or self.extension_level < 0
+        ):
+            raise ValueError(f"extensionLevel must be an int >= 0, got {self.extension_level}")
+
+    def to_param_map(self) -> dict:
+        out = super().to_param_map()
+        if self.extension_level is not None:
+            out["extensionLevel"] = int(self.extension_level)
+        return out
+
+    @classmethod
+    def from_param_map(cls, param_map: dict) -> "ExtendedIsolationForestParams":
+        base = IsolationForestParams.from_param_map(param_map)
+        ext = param_map.get("extensionLevel")
+        return cls(**dataclasses.asdict(base), extension_level=None if ext is None else int(ext))
+
+
+def resolve_extension_level(extension_level: Optional[int], num_features: int) -> int:
+    """The EIF extension level: unset -> ``num_features - 1`` (fully
+    extended); a set value must satisfy ``0 <= extensionLevel <=
+    num_features - 1`` (ExtendedIsolationForest.scala:56-69)."""
+    max_level = num_features - 1
+    if extension_level is None:
+        return max_level
+    if extension_level > max_level:
+        raise ValueError(
+            f"extensionLevel={extension_level} exceeds maximum {max_level} for {num_features} features"
+        )
+    return int(extension_level)

@@ -1,0 +1,71 @@
+"""The port's kernel build (``ops/_build.py``) without ``nvcc``: a built
+library's name covers its source and the nvcc flags, so a change of either
+builds anew instead of loading a stale library."""
+
+from __future__ import annotations
+
+import pytest
+
+from isoforest_tpu_torch.ops import _build
+
+
+def test_every_kernel_source_is_listed_and_present():
+    assert set(_build.SOURCES) == {"walk", "dense", "ext_walk", "ext_dense"}
+    for source in _build.SOURCES.values():
+        assert (_build.CSRC_DIR / source).is_file()
+
+
+def test_flags_change_the_library_path(monkeypatch):
+    base = _build.library_path("ext_dense")
+    assert base == _build.library_path("ext_dense")
+    assert base.parent == _build.BUILD_DIR and base.name.startswith("libext_dense-")
+    seen = {base}
+    for extra in (("--fmad=false",), ("-lineinfo",)):
+        monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + extra)
+        assert _build.library_path("ext_dense") not in seen
+        seen.add(_build.library_path("ext_dense"))
+
+
+def test_source_changes_the_library_path(monkeypatch, tmp_path):
+    for name in ("walk.cu", "ext_walk.cu"):
+        (tmp_path / name).write_text("// a kernel\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build.library_path("ext_walk")
+    (tmp_path / "ext_walk.cu").write_text("// an edited kernel\n")
+    assert _build.library_path("ext_walk") != before
+    assert _build.library_path("walk").name != before.name
+
+
+def _fake_toolkit(tmp_path, monkeypatch, script: str):
+    """A CUDA_HOME whose bin/nvcc is ``script`` (Python), and a scratch
+    build directory."""
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("#!/usr/bin/env python3\nimport pathlib, sys, time\nargs = sys.argv[1:]\n" + script)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+
+
+def test_build_starts_every_nvcc_together_and_times_each(tmp_path, monkeypatch):
+    """ext_walk's nvcc sleeps longer than walk's; each reports its own time,
+    and the libraries land under their hashed names."""
+    _fake_toolkit(tmp_path, monkeypatch, (
+        "src = args[-1]\n"
+        "time.sleep(0.6 if src.endswith('ext_walk.cu') else 0.05)\n"
+        "pathlib.Path(args[args.index('-o') + 1]).write_text('lib')\n"
+        "print('ptxas info    : Used 32 registers')\n"
+    ))
+    report = _build.build(["ext_walk", "walk"], ptxas_verbose=True)
+    assert set(report) == {"ext_walk", "walk"}
+    assert report["walk"]["seconds"] < 0.5 <= report["ext_walk"]["seconds"]
+    assert "Used 32 registers" in report["walk"]["log"]
+    assert _build.library_path("walk").read_text() == "lib"
+    assert _build.build(["walk"]) == {}  # built already
+
+
+def test_failed_nvcc_raises_with_its_log(tmp_path, monkeypatch):
+    _fake_toolkit(tmp_path, monkeypatch, "print('error: no such intrinsic'); sys.exit(2)\n")
+    with pytest.raises(RuntimeError, match="nvcc failed for ext_dense.cu .exit 2.:\nerror: no such intrinsic"):
+        _build.build(["ext_dense"])
+    assert not _build.library_path("ext_dense").exists()

@@ -1,0 +1,224 @@
+"""The PyTorch port's EIF dense level walks (``ops/ext_dense.py``, the plain
+versions of the two kernels of ``csrc/ext_dense.cu``) against the JAX
+package's ``_extended_pallas_sparse`` (k <= 32) and
+``_extended_pallas_dense`` (k > 32), both through
+``pallas_traversal.path_lengths_pallas`` in interpret mode, on the CPU.
+
+XLA:CPU computes the reference's ``X @ W`` as an FMA chain over features
+from 0, and the port takes that chain over each node's coordinates, so on
+finite rows every dot, and every ``dot == offset`` tie, is the reference's
+bit for bit. Each tree's path length is one leaf value and the port adds
+``pl / T`` tree by tree, as the kernels' source does; XLA:CPU rewrites
+that into a multiply-add with the rounded ``1 / T``, which is exact for a
+power-of-two T. So with T = 8 and leaf sizes whose ``c(n)`` torch and XLA
+compute alike, the port equals both kernels bit for bit, on tie-heavy rows
+too. Elsewhere (the fixture's leaf sizes) atol 2e-6, as for the standard
+dense kernel.
+
+Rows with NaN or +-inf: the reference's product makes such a row NaN at
+every slot; the port routes them like the gather walk (only the node's own
+coordinates, plus ``x[0] * 0`` for each unused one), and is held to the
+JAX gather walk there (atol 1e-5: the gather walk sums trees in 8-tree
+blocks and divides once).
+"""
+
+from __future__ import annotations
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from isoforest_tpu.models import ExtendedIsolationForestModel as JaxModel
+from isoforest_tpu.ops.ext_growth import ExtendedForest as JaxForest
+from isoforest_tpu.ops.pallas_traversal import _SPARSE_K_MAX
+from isoforest_tpu.ops.pallas_traversal import path_lengths_pallas as jax_pallas
+from isoforest_tpu.ops.traversal import extended_path_lengths as jax_gather
+from isoforest_tpu.utils.math import avg_path_length as jax_c
+from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
+from isoforest_tpu_torch.ops import ext_dense, ext_walk
+from isoforest_tpu_torch.ops.traversal import extended_path_lengths
+from isoforest_tpu_torch.testing import finite_rows, random_extended_forest, rows
+from isoforest_tpu_torch.utils.math import avg_path_length as port_c
+
+FIXTURE = pathlib.Path(__file__).parent / "resources" / "torch_port" / "mammography_eif" / "model"
+ALL_SIZES = np.arange(0, 300)
+
+
+def sizes_with_equal_c() -> np.ndarray:
+    """Leaf sizes whose c(n) the two packages compute bit for bit."""
+    return ALL_SIZES[port_c(ALL_SIZES).numpy() == np.asarray(jax_c(ALL_SIZES))]
+
+
+def quantized_rows(rng, n: int, features: int) -> np.ndarray:
+    """TestQuantizedTieRouting's recipe: integers 0..3."""
+    return rng.integers(0, 4, size=(n, features)).astype(np.float32)
+
+
+def _port_dense(arrays, X) -> np.ndarray:
+    forest = extended_forest_from_arrays(*arrays, device="cpu")
+    return ext_dense.path_lengths_ext_dense(torch.from_numpy(X), ext_dense.hyperplane_tables(forest)).numpy()
+
+
+def test_sparse_split_is_the_jax_packages():
+    assert ext_dense.SPARSE_K_MAX == _SPARSE_K_MAX == 32
+
+
+@pytest.mark.parametrize(
+    "k,features,make_rows",
+    [
+        (1, 5, finite_rows),
+        (6, 6, finite_rows),
+        (6, 6, quantized_rows),
+        (32, 36, finite_rows),
+        (33, 40, finite_rows),
+        (40, 40, quantized_rows),
+    ],
+)
+def test_matches_jax_pallas_kernel_bitwise(k, features, make_rows):
+    """K4 (k <= 32) and K5 (k > 32) against their Pallas kernels: 8 trees,
+    intercepts drawn from the rows, so exact ties occur."""
+    rng = np.random.default_rng(1000 + 10 * k + features)
+    X = make_rows(rng, 1025, features)
+    arrays = random_extended_forest(rng, 8, 4, features, k, sizes=sizes_with_equal_c(), intercepts=X[:32])
+    tables = ext_dense.hyperplane_tables(extended_forest_from_arrays(*arrays, device="cpu"))
+    expected = ext_dense.SparseHyperplaneTables if k <= 32 else ext_dense.DenseHyperplaneTables
+    assert isinstance(tables, expected)
+    got = ext_dense.path_lengths_ext_dense(torch.from_numpy(X), tables).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_pallas(JaxForest(*arrays), X, interpret=True)))
+
+
+def test_fixture_slice_matches_jax_pallas_kernel(mammography):
+    """16 trees of the JAX-written mammography EIF (k = 6, tie-heavy),
+    2,048 rows."""
+    X = np.ascontiguousarray(mammography[0][:2048])
+    jm = JaxModel.load(str(FIXTURE))
+    arrays = tuple(np.asarray(a)[:16] for a in jm.forest)
+    want = np.asarray(jax_pallas(JaxForest(*arrays), X, interpret=True))
+    np.testing.assert_allclose(_port_dense(arrays, X), want, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("k,features", [(6, 7), (40, 40)])
+def test_nonfinite_rows_route_like_the_gather_walk(k, features):
+    """NaN goes left and +-inf count as numbers at the node's own
+    coordinates; an unused coordinate adds x[0] * 0 (NaN on a non-finite
+    x[0]), as in the gather walk."""
+    rng = np.random.default_rng(40 + k)
+    X = rows(rng, 600, features)
+    arrays = random_extended_forest(rng, 7, 4, features, k, unused_p=0.4)
+    got = _port_dense(arrays, X)
+    np.testing.assert_allclose(got, np.asarray(jax_gather(JaxForest(*arrays), X)), rtol=0, atol=1e-5)
+    wt = ext_walk.walk_tables_extended(extended_forest_from_arrays(*arrays, device="cpu"))
+    if k > ext_walk.PAIRED_MAX_K:  # same dot order as the walk: same routing
+        walk = ext_walk.path_lengths_ext_walk(torch.from_numpy(X), wt).numpy()
+        np.testing.assert_allclose(got, walk, rtol=0, atol=1e-5)
+
+
+def _one_node_forest(coords, weights, offset, k, sizes=(2, 50)):
+    """One tree of height 1: the root's hyperplane, leaves of ``sizes``."""
+    indices = np.full((1, 3, k), -1, np.int32)
+    w = np.zeros((1, 3, k), np.float32)
+    indices[0, 0, : len(coords)] = coords
+    w[0, 0, : len(coords)] = weights
+    off = np.zeros((1, 3), np.float32)
+    off[0, 0] = offset
+    num_instances = np.array([[-1, *sizes]], np.int32)
+    return indices, w, off, num_instances
+
+
+def test_duplicate_coordinates_merge_like_the_reference():
+    """A coordinate listed twice adds its weights first (np.add.at, the
+    reference's densify), in both kernels' tables, and routes as the
+    reference's kernels route it. The slot the merge frees is skipped (index
+    -1), not an unused coordinate: a non-finite x[0] leaves the dot alone in
+    both kernels, as in the gather walk."""
+    eq = sizes_with_equal_c()
+    arrays = _one_node_forest([3, 1, 3], [0.5, -0.25, 0.75], 0.0, 3, sizes=(eq[2], eq[40]))
+    forest = extended_forest_from_arrays(*arrays, device="cpu")
+    sparse = ext_dense.sparse_hyperplane_tables(forest)
+    np.testing.assert_array_equal(sparse.index[0, 0].numpy(), [1, 3, -1])
+    np.testing.assert_array_equal(sparse.weight[0, 0].numpy(), np.float32([-0.25, 1.25, 0.0]))
+    assert sparse.min_features == 4
+    dense = ext_dense.dense_hyperplane_table(forest)
+    np.testing.assert_array_equal(dense.weight[0, 0].numpy(), np.float32([0, -0.25, 0, 1.25]))
+    assert dense.kind[0, 0] == 1
+    rng = np.random.default_rng(3)
+    X = finite_rows(rng, 1024, 4)
+    want = np.asarray(jax_pallas(JaxForest(*arrays), X, interpret=True))
+    Xt = torch.from_numpy(X)
+    np.testing.assert_array_equal(ext_dense.ext_sparse_mean(Xt, sparse).numpy(), want)
+    np.testing.assert_array_equal(ext_dense.ext_dense_mean(Xt, dense).numpy(), want)
+    X[: len(X) // 2, 0] = np.resize(np.float32([np.nan, np.inf, -np.inf]), len(X) // 2)
+    Xt = torch.from_numpy(X)
+    got = ext_dense.ext_sparse_mean(Xt, sparse).numpy()
+    np.testing.assert_array_equal(got, ext_dense.ext_dense_mean(Xt, dense).numpy())
+    np.testing.assert_array_equal(got, want)  # x[0] is not a coordinate
+    np.testing.assert_allclose(got, np.asarray(jax_gather(JaxForest(*arrays), X)), rtol=0, atol=1e-5)
+
+
+def test_dense_table_marks_zero_weights_and_unused_coordinates():
+    """A present coordinate whose weights cancel is stored as -0.0 (it
+    still reads x[f], so an infinite x[f] makes the dot NaN and the row goes
+    left); an absent one is +0.0 and skipped; a node with an unused
+    coordinate is kind 2 and adds x[0] * 0."""
+    arrays = _one_node_forest([2, 2, 1], [0.5, -0.5, 1.0], -5.0, 4)
+    forest = extended_forest_from_arrays(*arrays, device="cpu")
+    dense = ext_dense.dense_hyperplane_table(forest)
+    bits = dense.weight[0, 0].view(torch.int32).numpy()
+    assert bits[0] == 0 and bits[2] == np.float32(-0.0).view(np.int32) and dense.kind[0, 0] == 2
+    X = np.array([[0, 0, 0], [0, 0, np.inf], [np.inf, 0, 0], [0, 1, 0]], np.float32)
+    left, right = np.float32(1 + float(port_c(2))), np.float32(1 + float(port_c(50)))
+    want = np.array([right, left, left, right], np.float32)
+    np.testing.assert_array_equal(ext_dense.ext_dense_mean(torch.from_numpy(X), dense).numpy(), want)
+    sparse = ext_dense.sparse_hyperplane_tables(forest)
+    # used, then the unused coordinate's x[0] * 0, then the merged-away slot last
+    np.testing.assert_array_equal(sparse.index[0, 0].numpy(), [1, 2, 0, -1])
+    np.testing.assert_array_equal(ext_dense.ext_sparse_mean(torch.from_numpy(X), sparse).numpy(), want)
+
+
+def test_height_fence():
+    rng = np.random.default_rng(8)
+    X = torch.from_numpy(finite_rows(rng, 64, 4))
+    at_fence = extended_forest_from_arrays(*random_extended_forest(rng, 2, 10, 4, 2, 0.3), device="cpu")
+    got = ext_dense.path_lengths_ext_dense(X, ext_dense.hyperplane_tables(at_fence))
+    torch.testing.assert_close(got, extended_path_lengths(at_fence, X), rtol=0, atol=1e-5)
+    above = extended_forest_from_arrays(*random_extended_forest(rng, 2, 11, 4, 2, 0.3), device="cpu")
+    with pytest.raises(ValueError, match="DENSE_MAX_HEIGHT=10"):
+        ext_dense.ext_sparse_mean(X, ext_dense.sparse_hyperplane_tables(above))
+    with pytest.raises(ValueError, match="DENSE_MAX_HEIGHT=10"):
+        ext_dense.ext_dense_mean(X, ext_dense.dense_hyperplane_table(above))
+
+
+def test_plain_versions_on_cpu_count_no_launch():
+    rng = np.random.default_rng(9)
+    forest = extended_forest_from_arrays(*random_extended_forest(rng, 4, 4, 3, 2), device="cpu")
+    X = torch.from_numpy(finite_rows(rng, 33, 3))
+    for wrapper, plain, build in (
+        (ext_dense.ext_sparse_mean, ext_dense.ext_sparse_mean_plain, ext_dense.sparse_hyperplane_tables),
+        (ext_dense.ext_dense_mean, ext_dense.ext_dense_mean_plain, ext_dense.dense_hyperplane_table),
+    ):
+        tables = build(forest)
+        before = wrapper.launches
+        got = wrapper(X, tables)
+        assert wrapper.launches == before
+        assert torch.equal(got, plain(X, tables))
+
+
+def test_wrappers_check_inputs():
+    rng = np.random.default_rng(10)
+    forest = extended_forest_from_arrays(*random_extended_forest(rng, 3, 3, 3, 2), device="cpu")
+    sparse = ext_dense.sparse_hyperplane_tables(forest)
+    dense = ext_dense.dense_hyperplane_table(forest)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        ext_dense.ext_sparse_mean(torch.zeros(4, 3).t(), sparse)
+    with pytest.raises(ValueError, match="EIF dense table 'value'"):
+        ext_dense.ext_sparse_mean(torch.zeros(4, 3), sparse._replace(value=sparse.value.double()))
+    with pytest.raises(ValueError, match="EIF dense table 'index'"):
+        ext_dense.ext_sparse_mean(torch.zeros(4, 3), sparse._replace(index=sparse.index[:, :1].contiguous()))
+    with pytest.raises(ValueError, match="X has 2 features, but the hyperplane tables span 3"):
+        ext_dense.ext_dense_mean(torch.zeros(4, 2), dense)
+    with pytest.raises(ValueError, match=f"X has 1 features, but the hyperplane tables span {sparse.min_features}"):
+        ext_dense.ext_sparse_mean(torch.zeros(4, 1), sparse)
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        ext_dense.ext_dense_mean(torch.zeros(4, 3, device="meta"), type(dense)(*(t.to("meta") for t in dense)))

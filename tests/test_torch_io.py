@@ -19,7 +19,7 @@ from isoforest_tpu.io import persistence as jpersistence
 from isoforest_tpu.models import IsolationForestModel as JaxModel
 from isoforest_tpu.ops.tree_growth import StandardForest as JaxForest
 from isoforest_tpu.utils.params import IsolationForestParams as JaxParams
-from isoforest_tpu_torch import load_model
+from isoforest_tpu_torch import IsolationForestModel, load_model
 from isoforest_tpu_torch.io import avro as tavro
 from isoforest_tpu_torch.io import persistence as tpersistence
 from isoforest_tpu_torch.testing import random_heap_forest
@@ -175,6 +175,14 @@ def test_directory_checks(tmp_path):
     meta = unsealed / "metadata" / "part-00000"
     doc = json.loads(meta.read_text())
     doc["class"] = jpersistence.EXTENDED_MODEL_CLASS
+    meta.write_text(json.dumps(doc) + "\n")
+    # load_model follows the metadata class, so the extended loader finds a
+    # standard node table; the standard loader refuses the class outright
+    with pytest.raises(ValueError, match="does not match the metadata class"):
+        load_model(str(unsealed), device="cpu", require_success=False)
+    with pytest.raises(ValueError, match="metadata class mismatch"):
+        IsolationForestModel.load(str(unsealed), device="cpu", require_success=False)
+    doc["class"] = "com.example.NotAnIsolationForest"
     meta.write_text(json.dumps(doc) + "\n")
     with pytest.raises(ValueError, match="metadata class mismatch"):
         load_model(str(unsealed), device="cpu", require_success=False)
