@@ -20,10 +20,11 @@ Phases, each printing one JSON line:
    each strategy, through ``model.score``, with every launch counter set to
    0 just before and read just after; then each kernel against its plain
    PyTorch version on the same inputs, and CUDA-event timings;
-5. edges: seeded synthetic forests (F in {1, 12, 13, 17, 274}, T = 13 with
-   a root-leaf tree, heights up to 12 for the walk and the dense kernel's
-   fence, N in {1, 1023, 1025}, rows with NaN and +-inf): kernel against
-   plain version for each;
+5. edges: seeded synthetic forests (F in {1, 5, 6, 12, 13, 17, 274}, T = 13
+   with a root-leaf tree, every height from 0 to the dense kernel's fence
+   10 (10 also at F = 6) and above it to 12 for the walk, N in {1, 1023,
+   1025}, rows with NaN and +-inf): each kernel against its plain version,
+   the dense kernel exactly (max |delta| 0);
 6. serving: ``model.score`` latency on batches of 1, 64 and 4,096 rows,
    with ``strategy="auto"`` (the walk) and ``"dense"``.
 
@@ -44,12 +45,17 @@ Then the same for the extended (EIF) forest:
    dense-walk kernel), and 65,536 rows through ``score_matrix(...,
    strategy="dense")`` of a seeded, fully extended forest at the high-dim
    width (F = k = 274, 100 trees, height 8: the dense-table kernel); then
-   each kernel against its plain version (the dense-table kernel on 4,096
-   of its rows), CUDA-event timings and bounds;
+   each kernel against its plain version on all of its rows (the two dense
+   kernels exactly), CUDA-event timings and bounds, and beside the
+   dense-table kernel the time of ``torch.matmul`` of its rows by all its
+   weights as one [274 x 25,500] float32 product (``matmul_ms``: the dots
+   alone, not the kernel's function; the port never calls it);
 10. ext_edges: seeded synthetic EIF forests (k in {1, 6, 8, 13, 16, 17, 32,
-    33, 40}, F in {1, 6, 13, 17, 40, 274, 1000}, root-leaf trees, heights up to the
-    dense fence and one above, N in {1, 1023, 1025}, NaN and +-inf rows,
-    tie-heavy quantized rows): each kernel against its plain version;
+    33, 40, 274, 1000}, F in {1, 6, 13, 17, 33, 40, 274, 1000}, root-leaf
+    trees, heights 0 to the dense fence and one above, N in {1, 129, 1000,
+    1023, 1025}, NaN and +-inf rows, a tile of finite rows with a few
+    non-finite ones, tie-heavy quantized rows): each kernel against its
+    plain version, the dense-table kernel exactly;
 11. ext_serving: EIF ``model.score`` latency on batches of 1, 64 and 4,096
     rows, ``"auto"`` and ``"dense"``.
 
@@ -80,7 +86,6 @@ PEAK_F32_OPS_PER_S = 67e12
 
 FULL_ROWS = 1_000_000
 HIGH_DIM_ROWS = 65_536  # the F = 274 dense-table forest: rows cut from 1M for time
-HIGH_DIM_CHECK_ROWS = 4_096
 SEED = 0
 
 
@@ -205,7 +210,7 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
     from isoforest_tpu_torch.ops import dense, ext_dense, ext_walk
     from isoforest_tpu_torch.ops.traversal import extended_path_lengths
-    from isoforest_tpu_torch.testing import random_extended_forest, rows
+    from isoforest_tpu_torch.testing import finite_rows, random_extended_forest, rows
     from isoforest_tpu_torch.utils.math import score_from_path_length
 
     # 7. parity with the JAX package on the committed EIF fixture
@@ -269,7 +274,6 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     wt = ext_walk.walk_tables_extended(model.forest)
     st = ext_dense.sparse_hyperplane_tables(model.forest)
     dt = ext_dense.dense_hyperplane_table(f5)
-    X5c = X5[:HIGH_DIM_CHECK_ROWS].contiguous()
 
     def chunked(plain, X, tables, rows_per=1 << 17):
         """The plain version, row chunk by row chunk (exact: rows are
@@ -290,13 +294,16 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     # result is what the kernel is held to
     walk_plain, walk_plain_ms = timed_once(lambda: chunked(ext_walk.ext_walk_sum_plain, Xd, wt))
     sparse_plain, sparse_plain_ms = timed_once(lambda: chunked(ext_dense.ext_sparse_mean_plain, Xd, st))
-    dense_plain, dense_plain_ms = timed_once(lambda: ext_dense.ext_dense_mean_plain(X5c, dt))
+    dense_plain, dense_plain_ms = timed_once(lambda: chunked(ext_dense.ext_dense_mean_plain, X5, dt, 1 << 15))
     walk_err = float((ext_walk.ext_walk_sum(Xd, wt) - walk_plain).abs().max())
     sparse_err = float((ext_dense.ext_sparse_mean(Xd, st) - sparse_plain).abs().max())
-    dense_err = float((ext_dense.ext_dense_mean(X5c, dt) - dense_plain).abs().max())
+    dense_err = float((ext_dense.ext_dense_mean(X5, dt) - dense_plain).abs().max())
     require(walk_err <= 1e-5, f"EIF walk kernel vs plain: {walk_err}")
     require(sparse_err <= 1e-5, f"EIF sparse kernel vs plain: {sparse_err}")
-    require(dense_err <= 1e-5, f"EIF dense-table kernel vs plain: {dense_err}")
+    require(dense_err == 0.0, f"EIF dense-table kernel vs plain: {dense_err}")
+    # the dots alone as one float32 product (TF32 is off): a yardstick, not the function
+    m_int5 = (dt.value.shape[1] + 1) // 2 - 1
+    W5 = dt.weight[:, :, :m_int5].permute(1, 0, 2).reshape(dt.weight.shape[1], -1).contiguous()
     # the card's walk scores against the port's gather walk on a slice: equal
     # but where a tie routes the other way under the two dot orders
     ref = score_from_path_length(extended_path_lengths(model.forest, Xd[:4096]), model.num_samples)
@@ -307,8 +314,9 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
         "walk_plain_ms": walk_plain_ms,
         "sparse_ms": time_ms(lambda: ext_dense.ext_sparse_mean(Xd, st), inner=3),
         "sparse_plain_ms": sparse_plain_ms,
-        "dense_ms": time_ms(lambda: ext_dense.ext_dense_mean(X5, dt), reps=3, warmup=1),
+        "dense_ms": time_ms(lambda: ext_dense.ext_dense_mean(X5, dt), reps=5, warmup=1),
         "dense_plain_ms": dense_plain_ms,
+        "dense_matmul_ms": time_ms(lambda: torch.matmul(X5, W5), reps=5),
     }
 
     # Bounds, from this run's inputs, counted as for the standard kernels:
@@ -351,7 +359,7 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     dense_algo_ms = (n5 * slots5 * (1 + 2 * k5) + 2.0 * n5 * t5) / PEAK_F32_OPS_PER_S * 1e3
     emit({"phase": "ext_full_size", "rows": n, "features": f, "trees": t_n, "k": k,
           "heap_slots": model.forest.max_nodes, "high_dim": {"rows": n5, "features": 274, "k": k5, "trees": t5,
-                                                             "height": f5.height, "check_rows": X5c.shape[0]},
+                                                             "height": f5.height, "matmul_shape": list(W5.shape)},
           "launches": launches, "score_walk_s": t1 - t0, "score_dense_s": t2 - t1, "score_high_dim_s": t3 - t2,
           "walk_vs_dense_max_abs_score": float((s_walk - s_dense).abs().max()),
           "walk_vs_gather_max_abs_score_4096": gather_gap,
@@ -370,6 +378,7 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
 
     # 10. edges: synthetic EIF forests, each kernel against its plain version
     cases = [
+        {"features": 1, "k": 1, "height": 0, "rows": 1023, "data": "nonfinite"},
         {"features": 1, "k": 1, "height": 8, "rows": 1025, "data": "nonfinite"},
         {"features": 6, "k": 6, "height": dense.DENSE_MAX_HEIGHT, "rows": 1025, "data": "ties"},
         {"features": 6, "k": 6, "height": dense.DENSE_MAX_HEIGHT + 1, "rows": 1023, "data": "ties"},
@@ -379,15 +388,32 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
         {"features": 40, "k": 32, "height": 5, "rows": 1025, "data": "ties"},
         {"features": 40, "k": 33, "height": 5, "rows": 1023, "data": "nonfinite"},
         {"features": 274, "k": 33, "height": 8, "rows": 1, "data": "nonfinite"},
-        # rows too wide for the dense-table kernel's shared-memory tile: x[f] from L1
+        # rows too wide for the sparse kernel's shared-memory tile: x[f] from L1
         {"features": 1000, "k": 8, "height": 6, "rows": 1023, "data": "nonfinite"},
         {"features": 1000, "k": 40, "height": 4, "rows": 1025, "data": "nonfinite"},
+        # the dense-table kernel at its tile boundaries: widths off the 16-feature
+        # chunk, rows off the 128-row tile, heights 0 to 10 (128-slot tiles to
+        # h = 7, 256-slot ones above, 4 at h = 10), a tile of finite rows with
+        # a few non-finite ones, ties
+        {"features": 33, "k": 33, "height": 8, "rows": 1025, "data": "ties"},
+        {"features": 274, "k": 274, "height": 7, "rows": 1023, "data": "ties"},
+        {"features": 40, "k": 40, "height": 10, "rows": 1023, "data": "ties"},
+        {"features": 274, "k": 274, "height": 0, "rows": 1, "data": "nonfinite"},
+        {"features": 274, "k": 274, "height": 10, "rows": 1000, "data": "mixed"},
+        {"features": 274, "k": 40, "height": 8, "rows": 129, "data": "mixed"},
+        {"features": 1000, "k": 1000, "height": 6, "rows": 1025, "data": "mixed"},
     ]
     edges = []
     for case in cases:
         f_e = case["features"]
-        Xe = (rng.integers(0, 4, size=(case["rows"], f_e)).astype(np.float32) if case["data"] == "ties"
-              else rows(rng, case["rows"], f_e))
+        if case["data"] == "ties":
+            Xe = rng.integers(0, 4, size=(case["rows"], f_e)).astype(np.float32)
+        elif case["data"] == "mixed":  # one tile of finite rows, a few non-finite
+            Xe = finite_rows(rng, case["rows"], f_e)
+            Xe[[0, min(5, case["rows"] - 1)], [0, f_e - 1]] = [np.nan, np.inf]
+            Xe[min(70, case["rows"] - 1), f_e // 2] = -np.inf
+        else:
+            Xe = rows(rng, case["rows"], f_e)
         arrays = random_extended_forest(rng, 13, case["height"], f_e, case["k"], split_p=0.85,
                                         intercepts=Xe[:32], unused_p=0.2)
         forest = extended_forest_from_arrays(*arrays)
@@ -403,7 +429,8 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
         if case["height"] <= dense.DENSE_MAX_HEIGHT:
             d_err = float((kernel(xe, tables) - plain(xe, tables)).abs().max())
             row[f"{kernel.__name__}_vs_plain"] = d_err
-            require(d_err <= 1e-5, f"EIF dense edge case {row}")
+            exact = kernel is ext_dense.ext_dense_mean
+            require(d_err == 0.0 if exact else d_err <= 1e-5, f"EIF dense edge case {row}")
         else:
             try:
                 kernel(xe, tables)
@@ -417,21 +444,23 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     # 11. serving-sized batches through the EIF model.score
     emit({"phase": "ext_serving", "latency": serving_latency(model, X_big, ("auto", "dense"))})
 
-    walk_src, dense_src = "isoforest_tpu_torch/csrc/ext_walk.cu", "isoforest_tpu_torch/csrc/ext_dense.cu"
+    walk_src, sparse_src = "isoforest_tpu_torch/csrc/ext_walk.cu", "isoforest_tpu_torch/csrc/ext_dense.cu"
     entry = {"route": "cuda", "library_ms": None}
     return [
         {**entry, "name": "ext_walk_sum", "source": walk_src,
          "replaces": "isoforest_tpu/ops/pallas_walk.py:345", "launches": launches["ext_walk_sum"],
          "max_abs_err": walk_err, "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
          "bound_ms": walk_bound, "bound_by": walk_by, "rows": n, "plain_rows": n},
-        {**entry, "name": "ext_sparse_mean", "source": dense_src, "replaces": "isoforest_tpu/ops/pallas_traversal.py:303",
+        {**entry, "name": "ext_sparse_mean", "source": sparse_src, "replaces": "isoforest_tpu/ops/pallas_traversal.py:303",
          "launches": launches["ext_sparse_mean"], "max_abs_err": sparse_err, "ms": times["sparse_ms"],
          "plain_ms": times["sparse_plain_ms"], "bound_ms": sparse_bound, "bound_by": sparse_by,
          "rows": n, "plain_rows": n},
-        {**entry, "name": "ext_dense_mean", "source": dense_src, "replaces": "isoforest_tpu/ops/pallas_traversal.py:330",
+        {**entry, "name": "ext_dense_mean", "source": "isoforest_tpu_torch/csrc/ext_gemm.cu",
+         "replaces": "isoforest_tpu/ops/pallas_traversal.py:330",
          "launches": launches["ext_dense_mean"], "max_abs_err": dense_err, "ms": times["dense_ms"],
          "plain_ms": times["dense_plain_ms"], "bound_ms": dense_bound, "bound_by": dense_by,
-         "rows": n5, "plain_rows": X5c.shape[0]},
+         "matmul_ms": times["dense_matmul_ms"],
+         "rows": n5, "plain_rows": n5},
     ]
 
 
@@ -533,7 +562,7 @@ def main() -> int:
     walk_err = float((walk.walk_sum(Xd, wt) - walk.walk_sum_plain(Xd, wt)).abs().max())
     dense_err = float((dense.dense_mean(Xd, dt) - dense.dense_mean_plain(Xd, dt)).abs().max())
     require(walk_err <= 1e-5, f"walk kernel vs plain: {walk_err}")
-    require(dense_err <= 1e-5, f"dense kernel vs plain: {dense_err}")
+    require(dense_err == 0.0, f"dense kernel vs plain: {dense_err}")
     times = {
         "walk_ms": time_ms(lambda: walk.walk_sum(Xd, wt), inner=10),
         "walk_plain_ms": time_ms(lambda: walk.walk_sum_plain(Xd, wt), reps=5),
@@ -584,13 +613,15 @@ def main() -> int:
     emit(breakdown_phase("breakdown", model, X_big))
 
     # 5. edges: synthetic forests, kernel against plain version
-    cases = [
-        {"features": 1, "height": 8, "rows": 1025},
-        {"features": 12, "height": 8, "rows": 1023},
-        {"features": 13, "height": 8, "rows": 1025},
-        {"features": 17, "height": 6, "rows": 1023},
-        {"features": 274, "height": 8, "rows": 1},
+    # every height to the dense fence, each at one of F in {1, 6, 12, 13, 274}
+    # (274: the row tile in 5 feature chunks) and N in {1, 1023, 1025}
+    widths, row_counts = (1, 6, 12, 13, 274), (1, 1023, 1025)
+    cases = [{"features": widths[h % 5], "height": h, "rows": row_counts[h % 3]}
+             for h in range(dense.DENSE_MAX_HEIGHT + 1)]
+    cases += [
         {"features": 6, "height": dense.DENSE_MAX_HEIGHT, "rows": 1025},
+        {"features": 274, "height": 8, "rows": 1025},
+        {"features": 17, "height": 6, "rows": 1023},
         {"features": 6, "height": dense.DENSE_MAX_HEIGHT + 1, "rows": 1023},
         {"features": 5, "height": 12, "rows": 1025},
     ]
@@ -608,7 +639,7 @@ def main() -> int:
             dte = dense.pack_standard(forest)
             d_err = float((dense.dense_mean(xe, dte) - dense.dense_mean_plain(xe, dte)).abs().max())
             row["dense_vs_plain"] = d_err
-            require(d_err <= 1e-5, f"dense edge case {row}")
+            require(d_err == 0.0, f"dense edge case {row}")
         else:
             tables = dense.pack_standard(forest)
             try:

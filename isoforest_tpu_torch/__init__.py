@@ -4,7 +4,8 @@ with hand-written CUDA kernels for NVIDIA Hopper (H100).
 It serves standard and extended (EIF) forests: load a model the JAX
 package (or the reference) saved, and score rows on the card through the
 O(h) walk kernels (``csrc/walk.cu``, ``csrc/ext_walk.cu``) or the dense
-level-walk kernels (``csrc/dense.cu``, ``csrc/ext_dense.cu``). Entry points
+level-walk kernels (``csrc/dense.cu``, ``csrc/ext_dense.cu``,
+``csrc/ext_gemm.cu``). Entry points
 run on the card unless the caller names another device; ``device="cpu"``
 runs the kernels' plain PyTorch versions.
 

@@ -1,35 +1,30 @@
-// Gather-free dense level walk of an extended (EIF) isolation forest, for
-// Hopper (sm_90a). Two kernels from one template:
+// Gather-free dense level walk of an extended (EIF) isolation forest from
+// sparse hyperplane tables, for Hopper (sm_90a).
 //
-//  * ext_sparse_mean replaces isoforest_tpu/ops/pallas_traversal.py::
-//    _extended_pallas_sparse (kernel body _extended_kernel_sparse), which
-//    serves hyperplanes of k <= 32 coordinates from sparse [k] tables;
-//  * ext_dense_mean replaces pallas_traversal.py::_extended_pallas_dense
-//    (kernel body _extended_kernel_dense), which serves k > 32 from a dense
-//    [F] weight row per node.
+// ext_sparse_mean replaces isoforest_tpu/ops/pallas_traversal.py::
+// _extended_pallas_sparse (kernel body _extended_kernel_sparse), which
+// serves hyperplanes of k <= 32 coordinates from sparse [k] tables. Its
+// sibling for k > 32, the dense-hyperplane kernel, is ext_gemm.cu.
 //
-// Same function and the same dense nature as those kernels: for every row
+// Same function and the same dense nature as that kernel: for every row
 // and tree, EVERY internal slot's hyperplane test dot(x, w) >= offset is
 // evaluated, the row's path through the tree follows the go-right bits,
 // and the exit leaf's merged value (depth + c(numInstances)) is the tree's
 // path length. The row's result accumulates `acc += pl / T` tree by tree,
-// in tree order, as the TPU kernels' source does (pallas_traversal.py:239).
+// in tree order, as the TPU kernel's source does (pallas_traversal.py:239).
 //
-// The dot. The TPU kernels take dots = X @ W with W the densified
+// The dot. The TPU kernel takes dots = X @ W with W the densified
 // hyperplanes; XLA:CPU (the reference in interpret mode) computes each dot
 // as an FMA chain over features in ascending order from 0, and a zero
-// weight leaves an FMA chain unchanged on a finite row. So both kernels
-// compute acc = fma(x[f], w, acc) from acc = 0 over the node's coordinates
+// weight leaves an FMA chain unchanged on a finite row. So the kernel
+// computes acc = fma(x[f], w, acc) from acc = 0 over the node's coordinates
 // in ascending feature order, duplicates merged on the host as np.add.at
 // merges them, each step pinned with __fmaf_rn. On finite rows this is the
 // reference's dot bit for bit. On rows with NaN or +-inf the product would
 // make the dot NaN at every slot whatever the node's coordinates; here only
 // the node's own coordinates enter, plus x[0]*0 for each unused coordinate,
 // as in the gather walk, so such rows route like the gather walk. In the
-// dense table a weight of +0.0 marks an absent coordinate (skipped); a
-// present coordinate whose merged weight is 0 is stored as -0.0; kind 2
-// marks a node with unused coordinates (one x[0]*0 term at the end). In
-// the sparse tables an unused coordinate is (0, 0.0), one x[0]*0 term, and
+// sparse tables an unused coordinate is (0, 0.0), one x[0]*0 term, and
 // a coordinate that a merge removed is index -1, placed last: it was never
 // unused, so it adds no x[0]*0, and the node's terms end at the first -1.
 // No tensor cores and no library product: every product is an FP32 FMA on
@@ -37,9 +32,8 @@
 //
 // What bounds it on this card: issued operations. The dense algorithm
 // evaluates all 2^h - 1 internal-capable slots per row and tree (255 at
-// h = 8), each k (sparse) or F (dense) FMAs with a table read and a feature
-// read each: 1.5e11 FMAs at 1M rows x 100 trees x k = 6, and 4.6e11 at
-// 65,536 rows x 100 trees x F = 274. The function itself needs only the
+// h = 8), each k FMAs with a table read and a feature read each: 1.5e11
+// FMAs at 1M rows x 100 trees x k = 6. The function itself needs only the
 // slots on each row's path, as the walk (ext_walk.cu) evaluates.
 //
 // What the design does about it:
@@ -51,10 +45,9 @@
 //    conflict-free shared-memory load whatever the coordinate. The tile
 //    takes F * B * 4 bytes; B (256 down to 32 rows) is the largest that
 //    fits kMaxTileBytes, and only rows wider than that read x[f] through
-//    L1. Measured on the H100 at the main path's shapes
-//    (tools/torch_port_kernel_paths.py), the tile beats L1 reads in both
-//    kernels: by a few percent for the sparse kernel at F = 6, by more than
-//    2x for the dense-table kernel at F = 274.
+//    L1. Measured on the H100 at the main path's shape
+//    (tools/torch_port_kernel_paths.py), the tile beats L1 reads by a few
+//    percent at F = 6.
 //  * A level's go-right bits are packed 32 slots to a word in a per-thread
 //    array (32 words at the height fence), then the row's path follows the
 //    bits: at most one slot per level is reached, so the tree's path length
@@ -85,9 +78,8 @@ __device__ __forceinline__ float feature(const float* x_s, const float* x, int f
   }
 }
 
-// kDense: weight is f32[t, 2^h - 1, width] (width = F of the table);
-// otherwise index i32 and weight f32 [t, 2^h - 1, width] (width = k).
-template <bool kDense, bool kSmemX>
+// index i32 and weight f32 [t, 2^h - 1, width], width = k.
+template <bool kSmemX>
 __global__ void __launch_bounds__(kMaxThreads)
 ext_dense_kernel(const float* __restrict__ X, int n, int f_count,
                  const float* __restrict__ value, const int* __restrict__ kind,
@@ -128,18 +120,10 @@ ext_dense_kernel(const float* __restrict__ X, int n, int f_count,
           if (kd == 0) continue;
           const long long row0 = ((long long)t * m_int + s) * width;
           float dot = 0.f;
-          if constexpr (kDense) {
-            for (int f = 0; f < width; ++f) {
-              const float wv = __ldg(weight + row0 + f);
-              if (__float_as_uint(wv) != 0u) dot = __fmaf_rn(feature<kSmemX>(x_s, x, f, b), wv, dot);
-            }
-            if (kd == 2) dot = __fmaf_rn(feature<kSmemX>(x_s, x, 0, b), 0.f, dot);
-          } else {
-            for (int q = 0; q < width; ++q) {
-              const int f = __ldg(index + row0 + q);
-              if (f < 0) break;  // merged away, and so are the rest
-              dot = __fmaf_rn(feature<kSmemX>(x_s, x, f, b), __ldg(weight + row0 + q), dot);
-            }
+          for (int q = 0; q < width; ++q) {
+            const int f = __ldg(index + row0 + q);
+            if (f < 0) break;  // merged away, and so are the rest
+            dot = __fmaf_rn(feature<kSmemX>(x_s, x, f, b), __ldg(weight + row0 + q), dot);
           }
           // NaN compares false and goes left, as on every JAX path
           bits |= (uint32_t)(dot >= __ldg(t_val + s)) << j;
@@ -156,7 +140,6 @@ ext_dense_kernel(const float* __restrict__ X, int n, int f_count,
   }
 }
 
-template <bool kDense>
 int launch(const float* x, int n, int f, const float* val, const int* kd, const int* ix,
            const float* w, int width, int t, int h, float* o, cudaStream_t s) {
   int b = kMaxThreads;
@@ -167,13 +150,13 @@ int launch(const float* x, int n, int f, const float* val, const int* kd, const 
   if (smem_x) {
     const size_t smem = (size_t)f * b * 4;
     if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(ext_dense_kernel<kDense, true>,
+      const cudaError_t e = cudaFuncSetAttribute(ext_dense_kernel<true>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    ext_dense_kernel<kDense, true><<<(int)blocks, b, smem, s>>>(x, n, f, val, kd, ix, w, width, t, h, o);
+    ext_dense_kernel<true><<<(int)blocks, b, smem, s>>>(x, n, f, val, kd, ix, w, width, t, h, o);
   } else {
-    ext_dense_kernel<kDense, false><<<(int)blocks, b, 0, s>>>(x, n, f, val, kd, ix, w, width, t, h, o);
+    ext_dense_kernel<false><<<(int)blocks, b, 0, s>>>(x, n, f, val, kd, ix, w, width, t, h, o);
   }
   return (int)cudaGetLastError();
 }
@@ -197,22 +180,8 @@ extern "C" int ext_sparse_mean(const void* X, int n, int f, const void* value, c
                                void* out, void* stream) {
   const int bad = check_args(n, f, t, h, k);
   if (bad || n == 0) return bad;
-  return launch<false>(static_cast<const float*>(X), n, f, static_cast<const float*>(value),
-                       static_cast<const int*>(kind), static_cast<const int*>(index),
-                       static_cast<const float*>(weight), k, t, h, static_cast<float*>(out),
-                       static_cast<cudaStream_t>(stream));
-}
-
-// The same from dense hyperplanes: weight f32[t, 2^h - 1, width] (+0.0 at
-// absent coordinates, -0.0 at present ones of zero weight); kind 2 marks a
-// node with unused coordinates. width <= f.
-extern "C" int ext_dense_mean(const void* X, int n, int f, const void* value, const void* kind,
-                              const void* weight, int width, int t, int h, void* out,
-                              void* stream) {
-  const int bad = check_args(n, f, t, h, width);
-  if (bad || n == 0) return bad;
-  if (width > f) return (int)cudaErrorInvalidValue;
-  return launch<true>(static_cast<const float*>(X), n, f, static_cast<const float*>(value),
-                      static_cast<const int*>(kind), nullptr, static_cast<const float*>(weight),
-                      width, t, h, static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+  return launch(static_cast<const float*>(X), n, f, static_cast<const float*>(value),
+                static_cast<const int*>(kind), static_cast<const int*>(index),
+                static_cast<const float*>(weight), k, t, h, static_cast<float*>(out),
+                static_cast<cudaStream_t>(stream));
 }

@@ -2,13 +2,14 @@
 (standard kernel) and the standard half of ``ops/dense_traversal.py``.
 
 The CUDA kernel's wrapper (``csrc/dense.cu``), its plain PyTorch version
-(:func:`dense_mean_plain`, the ``_level_walk`` recurrence on tensors) and a
-launch counter. Both accumulate ``pl / T`` tree by tree, in tree order, as
-``_standard_kernel``'s source does (``pallas_traversal.py:190``), and agree
-with each other bit for bit. They agree with that kernel in interpret mode
-bit for bit where ``T`` is a power of two and the port's ``c(n)`` equals the
-JAX package's: XLA on the CPU turns the kernel's ``pl / T`` into a
-multiply-add with the rounded ``1 / T``, which is exact only then.
+(:func:`dense_mean_plain`: every internal-capable slot's go-right bit, then
+each row's path along its bits) and a launch counter. Both accumulate
+``pl / T`` tree by tree, in tree order, as ``_standard_kernel``'s source
+does (``pallas_traversal.py:190``), and agree with each other bit for bit.
+They agree with that kernel in interpret mode bit for bit where ``T`` is a
+power of two and the port's ``c(n)`` equals the JAX package's: XLA on the
+CPU turns the kernel's ``pl / T`` into a multiply-add with the rounded
+``1 / T``, which is exact only then.
 """
 
 from __future__ import annotations
@@ -22,15 +23,8 @@ from . import _build
 from .scoring_layout import StandardLayout, pack_standard
 from .tree_growth import StandardForest
 
-# Select/one-hot split of dense_traversal.py:70. At or below it the row's
-# features are selected by a chain of compares (kept in registers by the
-# kernel); above it x[feature] is read directly. The JAX package's one-hot
-# product there is exact only on finite rows; reading x[feature] is exact
-# on every row and routes NaN and inf like the gather walk.
-SELECT_MAX_FEATURES = 12
-
-# Height fence of csrc/dense.cu (kMaxHeight, derived there from registers
-# and shared memory). The walk strategy has no fence.
+# Height fence of csrc/dense.cu (kMaxHeight, derived there from registers),
+# and of both EIF dense kernels. The walk strategy has no fence.
 DENSE_MAX_HEIGHT = 10
 
 _P = ctypes.c_void_p
@@ -38,54 +32,27 @@ _I = ctypes.c_int
 _SIGNATURES = {"dense_mean": (_P, _I, _I, _P, _P, _I, _I, _P, _P)}
 
 
-def _level_walk(bits_fn, internal: torch.Tensor, value: torch.Tensor, n: int, h: int) -> torch.Tensor:
-    """Reach propagation over one tree's heap (``dense_traversal.py:89-115``).
-
-    ``bits_fn(start, width)`` gives the ``[N, width]`` go-right bits of a
-    level. Returns each row's path length: the sum over levels of the
-    reached slots' leaf values (``value`` at non-internal slots, 0 at
-    internal ones).
-    """
-    zero = torch.zeros((), dtype=torch.float32, device=value.device)
-    leaf_value = torch.where(internal, zero, value)
-    total = torch.zeros(n, dtype=torch.float32, device=value.device)
-    reach = torch.ones((n, 1), dtype=torch.bool, device=value.device)
-    for level in range(h + 1):
-        start = (1 << level) - 1
-        width = 1 << level
-        total = total + torch.where(reach, leaf_value[start : start + width], zero).sum(dim=1)
-        if level < h:
-            b = bits_fn(start, width)
-            alive = reach & internal[start : start + width]
-            reach = torch.stack([alive & ~b, alive & b], dim=2).reshape(n, 2 * width)
-    return total
-
-
 def dense_mean_plain(X: torch.Tensor, tables: StandardLayout) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: ``sum_t pl_t / T`` in tree order."""
-    n, f_count = X.shape
+    """The kernel's function, in its steps, in plain PyTorch: per tree the
+    go-right bits ``x[feature] >= value`` of the ``2^h - 1``
+    internal-capable slots, each row's path from the root along them, and
+    the exit slot's merged value as the tree's path length; ``sum_t pl_t /
+    T`` in tree order."""
+    n = X.shape[0]
     t_count, m = tables.value.shape
     h = height_of(m)
+    m_int = (m + 1) // 2 - 1
     t_real = torch.tensor(float(t_count), dtype=torch.float32, device=X.device)
     acc = torch.zeros(n, dtype=torch.float32, device=X.device)
     for t in range(t_count):
         feature, value = tables.feature[t], tables.value[t]
-        if f_count <= SELECT_MAX_FEATURES:
-
-            def bits(start, width, feature=feature, value=value):
-                feat_l = feature[start : start + width]
-                xv = torch.zeros((n, width), dtype=torch.float32, device=X.device)
-                for f in range(f_count):
-                    xv = torch.where(feat_l == f, X[:, f : f + 1], xv)
-                return xv >= value[start : start + width]
-
-        else:
-            b_all = X[:, feature.clamp(min=0).long()] >= value
-
-            def bits(start, width, b_all=b_all):
-                return b_all[:, start : start + width]
-
-        acc = acc + _level_walk(bits, feature >= 0, value, n, h) / t_real
+        node = torch.zeros(n, dtype=torch.long, device=X.device)
+        if m_int:
+            right = X[:, feature[:m_int].clamp(min=0).long()] >= value[:m_int]
+            for _ in range(h):
+                b = right.gather(1, node.clamp(max=m_int - 1)[:, None])[:, 0]
+                node = torch.where(feature[node] >= 0, 2 * node + 1 + b.long(), node)
+        acc = acc + value[node] / t_real
     return acc
 
 
@@ -135,7 +102,7 @@ def _check_inputs(X: torch.Tensor, tables: StandardLayout) -> None:
     if h > DENSE_MAX_HEIGHT:
         raise ValueError(
             f"the dense kernel supports trees of height <= DENSE_MAX_HEIGHT="
-            f"{DENSE_MAX_HEIGHT} (its reach masks live in registers); this forest "
+            f"{DENSE_MAX_HEIGHT} (a lane's go-right words live in registers); this forest "
             f"has height {h}: use strategy='walk'"
         )
     if X.shape[0] >= 2**31:

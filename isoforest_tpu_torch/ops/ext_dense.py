@@ -2,11 +2,12 @@
 ``isoforest_tpu/ops/pallas_traversal.py``'s two EIF kernels,
 ``_extended_pallas_sparse`` (k <= 32) and ``_extended_pallas_dense``.
 
-Host-side table builders, the wrappers of the two CUDA kernels in
-``csrc/ext_dense.cu``, their plain PyTorch versions and launch counters.
-Both kernels evaluate every internal slot's hyperplane test, follow each
-row's go-right bits to its exit leaf and accumulate ``pl / T`` tree by tree,
-as the Pallas kernels' source does (``pallas_traversal.py:239``).
+Host-side table builders, the wrappers of the two CUDA kernels
+(``csrc/ext_dense.cu`` for sparse tables, ``csrc/ext_gemm.cu`` for the
+dense table), their plain PyTorch versions and launch counters. Both
+kernels evaluate every internal slot's hyperplane test, follow each row's
+go-right bits to its exit leaf and accumulate ``pl / T`` tree by tree, as
+the Pallas kernels' source does (``pallas_traversal.py:239``).
 
 Each dot is ``acc = fma(x[f], w, acc)`` from 0 over the node's coordinates
 in ascending feature order, duplicates merged as ``np.add.at`` merges them:
@@ -14,7 +15,12 @@ the FMA chain XLA:CPU makes of the reference's ``X @ W`` (measured), so on
 finite rows the dots are the reference's bit for bit. Rows with NaN or
 +-inf route like the gather walk (only the node's coordinates, plus
 ``x[0] * 0`` for each unused one), not like the product, which would make
-such a row NaN at every slot. The plain versions take the same steps with
+such a row NaN at every slot. The dense-table kernel takes every
+coordinate of the dense row on rows without NaN or +-inf, where an absent
+coordinate's ``fma(x, +0.0, acc)`` changes at most the sign of a zero
+(``csrc/ext_gemm.cu`` gives the argument); its plain version takes only
+each node's own coordinates on every row, so holding the kernel to it on
+the card checks that argument. The plain versions compute each FMA with
 :func:`~isoforest_tpu_torch.utils.math.fma_f32`.
 """
 
@@ -38,10 +44,13 @@ SPARSE_K_MAX = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "ext_sparse_mean": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
-    "ext_dense_mean": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P),
-}
+_SPARSE_SIGNATURES = {"ext_sparse_mean": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P)}
+_DENSE_SIGNATURES = {"ext_dense_mean": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P)}
+
+# Bits of the dense table's ``kind`` (csrc/ext_gemm.cu): an internal node;
+# one with unused coordinates (the gather walk's x[0] * 0 term); one with an
+# absent coordinate below the table's width (+0.0 weight).
+KIND_INTERNAL, KIND_UNUSED, KIND_ABSENT = 1, 2, 4
 
 
 class SparseHyperplaneTables(NamedTuple):
@@ -62,10 +71,12 @@ class SparseHyperplaneTables(NamedTuple):
 
 
 class DenseHyperplaneTables(NamedTuple):
-    """``value`` and ``kind`` as for the sparse tables, ``kind`` 2 at an
-    internal node with unused coordinates; ``weight`` f32 [T, 2^h - 1, W]
-    with ``W = 1 + max(index)``: the merged weight of each present
-    coordinate (``-0.0`` where it is zero), ``+0.0`` where absent."""
+    """``value`` as for the sparse tables; ``kind`` i32 [T, M], the bits
+    ``KIND_INTERNAL | KIND_UNUSED | KIND_ABSENT`` of each internal node, 0
+    elsewhere; ``weight`` f32 [T, W, M4], slot-minor, with ``W = 1 +
+    max(index)`` and ``M4`` the ``2^h - 1`` internal-capable slots rounded
+    up to 4: the merged weight of each present coordinate (``-0.0`` where it
+    is zero), ``+0.0`` where absent and in the padding."""
 
     value: torch.Tensor
     kind: torch.Tensor
@@ -126,9 +137,9 @@ def sparse_hyperplane_tables(forest: ExtendedForest) -> SparseHyperplaneTables:
 
 def dense_hyperplane_table(forest: ExtendedForest) -> DenseHyperplaneTables:
     """The dense kernel's tables (``dense_hyperplane_table``,
-    ``pallas_traversal.py:430``, in heap order; duplicate coordinates
-    accumulate as ``np.add.at`` adds them), built on the CPU and moved to
-    the forest's device."""
+    ``pallas_traversal.py:430``, in heap order and slot-minor; duplicate
+    coordinates accumulate as ``np.add.at`` adds them), built on the CPU and
+    moved to the forest's device."""
     value, kind, indices, weights = _common(forest)
     t_n, m_int, _ = indices.shape
     width = max(int(indices.max(initial=-1)) + 1, 1)
@@ -140,12 +151,15 @@ def dense_hyperplane_table(forest: ExtendedForest) -> DenseHyperplaneTables:
     present[t_ix, m_ix, f_ix] = True
     W = np.where(present & (W == 0), np.float32(-0.0), W)
     internal = kind[:, :m_int] == 1
-    kind[:, :m_int] = np.where(internal & (indices < 0).any(axis=2), 2, kind[:, :m_int])
+    bits = (KIND_INTERNAL + KIND_UNUSED * (indices < 0).any(axis=2) + KIND_ABSENT * ~present.all(axis=2))
+    kind[:, :m_int] = np.where(internal, bits, 0)
+    slot_minor = np.zeros((t_n, width, (m_int + 3) // 4 * 4), np.float32)
+    slot_minor[:, :, :m_int] = W.transpose(0, 2, 1)
     dev = forest.device
     return DenseHyperplaneTables(
         value=value.contiguous().to(dev),
         kind=torch.from_numpy(kind).to(dev),
-        weight=torch.from_numpy(W).to(dev),
+        weight=torch.from_numpy(slot_minor).to(dev),
     )
 
 
@@ -185,20 +199,27 @@ def ext_sparse_mean_plain(X: torch.Tensor, tables: SparseHyperplaneTables) -> to
     return _walk_bits(X, dots, tables.value, tables.kind)
 
 
+def skipping_dots(x: torch.Tensor, w: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
+    """``acc = fma(x[:, f], w[f, s], acc)`` from 0 over each node's own
+    coordinates in ascending order (a ``+0.0`` weight is absent and
+    skipped), then ``x[0] * 0`` at nodes with unused coordinates: ``x`` [N,
+    W] by slot-minor ``w`` [W, S] gives [N, S]. The reference's chain,
+    routing NaN and +-inf like the gather walk."""
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+    present = w.view(torch.int32) != 0
+    for f in range(w.shape[0]):
+        acc = torch.where(present[f], fma_f32(x[:, f : f + 1], w[f], acc), acc)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return torch.where((kind & KIND_UNUSED) != 0, fma_f32(x[:, :1], zero, acc), acc)
+
+
 def ext_dense_mean_plain(X: torch.Tensor, tables: DenseHyperplaneTables) -> torch.Tensor:
-    """The dense kernel's function in plain PyTorch."""
-
-    def dots(t):
-        w = tables.weight[t]
-        acc = torch.zeros((X.shape[0], w.shape[0]), dtype=torch.float32, device=X.device)
-        present = w.view(torch.int32) != 0  # +0.0 marks an absent coordinate
-        for f in range(w.shape[1]):
-            acc = torch.where(present[:, f], fma_f32(X[:, f : f + 1], w[:, f], acc), acc)
-        unused = tables.kind[t, : w.shape[0]] == 2
-        zero = torch.zeros((), dtype=torch.float32, device=X.device)
-        return torch.where(unused, fma_f32(X[:, :1], zero, acc), acc)
-
-    return _walk_bits(X, dots, tables.value, tables.kind)
+    """The dense kernel's function in plain PyTorch: every slot's
+    :func:`skipping_dots`, then each row's path along its go-right bits."""
+    x = X[:, : tables.weight.shape[1]]
+    m_int = (tables.value.shape[1] + 1) // 2 - 1
+    return _walk_bits(X, lambda t: skipping_dots(x, tables.weight[t, :, :m_int], tables.kind[t, :m_int]),
+                      tables.value, tables.kind)
 
 
 def ext_sparse_mean(X: torch.Tensor, tables: SparseHyperplaneTables) -> torch.Tensor:
@@ -209,15 +230,15 @@ def ext_sparse_mean(X: torch.Tensor, tables: SparseHyperplaneTables) -> torch.Te
     ``ext_sparse_mean.launches``; on a CPU tensor it runs
     :func:`ext_sparse_mean_plain`.
     """
-    _check_inputs(X, tables, tables.index.shape[2], tables.min_features)
+    t_count, m = tables.value.shape
+    _check_inputs(X, tables, (t_count, (m + 1) // 2 - 1, tables.index.shape[2]), tables.min_features)
     if X.device.type == "cpu":
         return ext_sparse_mean_plain(X, tables)
     n, f = X.shape
     out = torch.empty(n, dtype=torch.float32, device=X.device)
     if n == 0:
         return out
-    lib = _build.load("ext_dense", _SIGNATURES)
-    t_count, m = tables.value.shape
+    lib = _build.load("ext_dense", _SPARSE_SIGNATURES)
     err = lib.ext_sparse_mean(
         X.data_ptr(), n, f, tables.value.data_ptr(), tables.kind.data_ptr(),
         tables.index.data_ptr(), tables.weight.data_ptr(), tables.index.shape[2],
@@ -235,22 +256,24 @@ def ext_dense_mean(X: torch.Tensor, tables: DenseHyperplaneTables) -> torch.Tens
     """Mean path length over trees from the dense hyperplane table, ``f32[N]``.
 
     On a CUDA tensor this launches ``ext_dense_mean`` of
-    ``csrc/ext_dense.cu`` and counts the launch in
+    ``csrc/ext_gemm.cu`` and counts the launch in
     ``ext_dense_mean.launches``; on a CPU tensor it runs
     :func:`ext_dense_mean_plain`.
     """
-    _check_inputs(X, tables, tables.weight.shape[2], tables.weight.shape[2])
+    t_count, m = tables.value.shape
+    width = tables.weight.shape[1] if tables.weight.dim() == 3 else 0
+    m_int = (m + 1) // 2 - 1
+    _check_inputs(X, tables, (t_count, width, (m_int + 3) // 4 * 4), width)
     if X.device.type == "cpu":
         return ext_dense_mean_plain(X, tables)
     n, f = X.shape
     out = torch.empty(n, dtype=torch.float32, device=X.device)
     if n == 0:
         return out
-    lib = _build.load("ext_dense", _SIGNATURES)
-    t_count, m = tables.value.shape
+    lib = _build.load("ext_gemm", _DENSE_SIGNATURES)
     err = lib.ext_dense_mean(
         X.data_ptr(), n, f, tables.value.data_ptr(), tables.kind.data_ptr(),
-        tables.weight.data_ptr(), tables.weight.shape[2], t_count, height_of(m),
+        tables.weight.data_ptr(), width, t_count, height_of(m),
         out.data_ptr(), torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(err, "ext_dense_mean")
@@ -261,7 +284,9 @@ def ext_dense_mean(X: torch.Tensor, tables: DenseHyperplaneTables) -> torch.Tens
 ext_dense_mean.launches = 0
 
 
-def _check_inputs(X: torch.Tensor, tables, width: int, min_features: int) -> None:
+def _check_inputs(X: torch.Tensor, tables, node_shape, min_features: int) -> None:
+    """``node_shape``: the shape of the per-node tables (``index``,
+    ``weight``); ``value`` and ``kind`` take ``[T, M]``."""
     if X.dtype != torch.float32 or X.dim() != 2 or not X.is_contiguous():
         raise ValueError(f"X must be a contiguous float32 [N, F] tensor, got {X.dtype} {tuple(X.shape)}")
     if X.shape[1] < 1:
@@ -270,10 +295,9 @@ def _check_inputs(X: torch.Tensor, tables, width: int, min_features: int) -> Non
         raise ValueError(f"the EIF dense kernels run on 'cuda' or 'cpu' tensors, got {X.device}")
     plane = tables.value.shape
     h = height_of(plane[1])
-    rows = (plane[0], (plane[1] + 1) // 2 - 1, width)
     dtypes = {"value": torch.float32, "kind": torch.int32, "index": torch.int32, "weight": torch.float32}
     for name in (f for f in tables._fields if f in dtypes):
-        a, shape = getattr(tables, name), plane if name in ("value", "kind") else rows
+        a, shape = getattr(tables, name), plane if name in ("value", "kind") else tuple(node_shape)
         if a.device != X.device or a.dtype != dtypes[name] or a.shape != shape or not a.is_contiguous():
             raise ValueError(
                 f"EIF dense table {name!r} must be a contiguous {dtypes[name]} {tuple(shape)} tensor "
@@ -284,8 +308,8 @@ def _check_inputs(X: torch.Tensor, tables, width: int, min_features: int) -> Non
     if h > DENSE_MAX_HEIGHT:
         raise ValueError(
             f"the dense kernels support trees of height <= DENSE_MAX_HEIGHT="
-            f"{DENSE_MAX_HEIGHT} (their go-right bits live in 32 registers' "
-            f"worth of words); this forest has height {h}: use strategy='walk'"
+            f"{DENSE_MAX_HEIGHT} (their go-right bits live in at most 32 words "
+            f"a row); this forest has height {h}: use strategy='walk'"
         )
     if X.shape[0] >= 2**31:
         raise ValueError("the dense kernels take fewer than 2^31 rows")

@@ -10,7 +10,7 @@ from isoforest_tpu_torch.ops import _build
 
 
 def test_every_kernel_source_is_listed_and_present():
-    assert set(_build.SOURCES) == {"walk", "dense", "ext_walk", "ext_dense"}
+    assert set(_build.SOURCES) == {"walk", "dense", "ext_walk", "ext_dense", "ext_gemm"}
     for source in _build.SOURCES.values():
         assert (_build.CSRC_DIR / source).is_file()
 

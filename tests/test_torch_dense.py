@@ -25,7 +25,6 @@ import pytest
 import torch
 
 from isoforest_tpu.models import IsolationForestModel as JaxModel
-from isoforest_tpu.ops.dense_traversal import _SELECT_MAX_FEATURES as JAX_SELECT_MAX
 from isoforest_tpu.ops.dense_traversal import standard_path_lengths_dense as jax_dense
 from isoforest_tpu.ops.pallas_traversal import path_lengths_pallas as jax_pallas
 from isoforest_tpu.ops.traversal import standard_path_lengths as jax_gather
@@ -49,10 +48,6 @@ def sizes_with_equal_c() -> np.ndarray:
 def _port_dense(arrays, X) -> np.ndarray:
     forest = forest_from_arrays(*arrays, device="cpu")
     return dense.standard_path_lengths_dense(forest, torch.from_numpy(X)).numpy()
-
-
-def test_select_split_is_the_jax_packages():
-    assert dense.SELECT_MAX_FEATURES == JAX_SELECT_MAX == 12
 
 
 @pytest.mark.parametrize("features,n", [(12, 1025), (13, 1023), (3, 1)])
@@ -80,6 +75,20 @@ def test_dense_matches_jax_any_tree_count_and_leaf_size(features, n):
     np.testing.assert_allclose(got, np.asarray(jax_dense(jf, X)), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("height", [0, 1, 8, 10])
+@pytest.mark.parametrize("features", [1, 6, 12, 13])
+def test_bits_then_path_matches_jax_pallas_kernel(height, features):
+    """The plain version's steps (every internal-capable slot's go-right
+    bit, then each row's path along them) against the Pallas kernel's level
+    walk, at heights 0 to the fence and on both sides of the JAX package's
+    select split: 8 trees, leaf sizes with equal c(n), bit for bit."""
+    rng = np.random.default_rng(100 * height + features)
+    arrays = random_heap_forest(rng, trees=8, height=height, features=features, sizes=sizes_with_equal_c())
+    X = finite_rows(rng, 300, features)
+    got = _port_dense(arrays, X)
+    np.testing.assert_array_equal(got, np.asarray(jax_pallas(JaxForest(*arrays), X, interpret=True)))
+
+
 def test_fixture_slice_matches_jax_pallas_kernel(mammography):
     """16 trees of the JAX-written mammography model, 2,048 rows."""
     X = np.ascontiguousarray(mammography[0][:2048])
@@ -90,7 +99,7 @@ def test_fixture_slice_matches_jax_pallas_kernel(mammography):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("features", [5, 13])
+@pytest.mark.parametrize("features", [5, 12, 13])
 def test_nonfinite_rows_route_like_the_gather_walk(features):
     """NaN goes left and +-inf compare as numbers at every F. (The JAX
     package's one-hot product above F = 12 turns a row with any non-finite

@@ -32,7 +32,8 @@ import torch
 
 from isoforest_tpu.models import ExtendedIsolationForestModel as JaxModel
 from isoforest_tpu.ops.ext_growth import ExtendedForest as JaxForest
-from isoforest_tpu.ops.pallas_traversal import _SPARSE_K_MAX
+from isoforest_tpu.ops.pallas_traversal import _SPARSE_K_MAX, _concat_order
+from isoforest_tpu.ops.pallas_traversal import dense_hyperplane_table as jax_dense_table
 from isoforest_tpu.ops.pallas_traversal import path_lengths_pallas as jax_pallas
 from isoforest_tpu.ops.traversal import extended_path_lengths as jax_gather
 from isoforest_tpu.utils.math import avg_path_length as jax_c
@@ -41,6 +42,7 @@ from isoforest_tpu_torch.ops import ext_dense, ext_walk
 from isoforest_tpu_torch.ops.traversal import extended_path_lengths
 from isoforest_tpu_torch.testing import finite_rows, random_extended_forest, rows
 from isoforest_tpu_torch.utils.math import avg_path_length as port_c
+from isoforest_tpu_torch.utils.math import fma_f32
 
 FIXTURE = pathlib.Path(__file__).parent / "resources" / "torch_port" / "mammography_eif" / "model"
 ALL_SIZES = np.arange(0, 300)
@@ -115,6 +117,88 @@ def test_nonfinite_rows_route_like_the_gather_walk(k, features):
         np.testing.assert_allclose(got, walk, rtol=0, atol=1e-5)
 
 
+def all_coordinate_dots(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``acc = fma(x[:, f], w[f], acc)`` from 0 over every coordinate of the
+    dense rows, ``+0.0`` weights included: the dense-table kernel's product
+    on rows without NaN or +-inf."""
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32)
+    for f in range(w.shape[0]):
+        acc = fma_f32(x[:, f : f + 1], w[f], acc)
+    return acc
+
+
+@pytest.mark.parametrize("k,features", [(33, 40), (40, 47), (274, 274)])
+def test_all_coordinate_dots_route_like_the_skipping_form(k, features):
+    """On finite rows the dense-table kernel's product over every coordinate
+    of the dense row (+0.0 weights included) gives path lengths bit for bit
+    equal to the plain version's chain over each node's own coordinates, on
+    tie-heavy rows (integers 0..3, intercepts drawn from them) where dot ==
+    offset is common (16 distinct rows, repeated), and with nodes that have
+    unused and absent coordinates."""
+    rng = np.random.default_rng(3000 + k)
+    X = quantized_rows(rng, 16, features)[rng.integers(0, 16, 512)]
+    arrays = random_extended_forest(rng, 4, 4, features, k, intercepts=X[:32], unused_p=0.3)
+    tables = ext_dense.dense_hyperplane_table(extended_forest_from_arrays(*arrays, device="cpu"))
+    m_int = (tables.value.shape[1] + 1) // 2 - 1
+    Xt = torch.from_numpy(X)
+    x = Xt[:, : tables.weight.shape[1]]
+    kinds = tables.kind[:, :m_int]
+    assert ((kinds & ext_dense.KIND_ABSENT) != 0).any() and ((kinds & ext_dense.KIND_UNUSED) != 0).any()
+    ties = 0
+    for t in range(tables.value.shape[0]):
+        w, kind = tables.weight[t, :, :m_int], tables.kind[t, :m_int]
+        dense, skipping = all_coordinate_dots(x, w), ext_dense.skipping_dots(x, w, kind)
+        internal = kind > 0
+        ties += int(((skipping == tables.value[t, :m_int]) & internal).sum())
+        np.testing.assert_array_equal((dense >= tables.value[t, :m_int])[:, internal].numpy(),
+                                      (skipping >= tables.value[t, :m_int])[:, internal].numpy())
+    assert ties > 100
+    walk_dense = ext_dense._walk_bits(Xt, lambda t: all_coordinate_dots(x, tables.weight[t, :, :m_int]),
+                                      tables.value, tables.kind)
+    assert torch.equal(walk_dense, ext_dense.ext_dense_mean_plain(Xt, tables))
+
+
+@pytest.mark.parametrize("k,features", [(33, 40), (274, 274)])
+def test_tile_of_finite_and_nonfinite_rows_routes_like_the_gather_walk(k, features):
+    """One tile of rows, a few with NaN or +-inf at coordinates some nodes
+    leave absent: those rows route like the gather walk (port and JAX), the
+    finite rows beside them do not move."""
+    rng = np.random.default_rng(4000 + k)
+    X = finite_rows(rng, 128, features)
+    arrays = random_extended_forest(rng, 5, 5, features, k, unused_p=0.3)
+    forest = extended_forest_from_arrays(*arrays, device="cpu")
+    tables = ext_dense.dense_hyperplane_table(forest)
+    finite = ext_dense.ext_dense_mean_plain(torch.from_numpy(X), tables)
+    X[3, 0], X[40, features - 1], X[77, features // 2], X[100, 1] = np.nan, np.inf, -np.inf, np.nan
+    Xt = torch.from_numpy(X)
+    got = ext_dense.ext_dense_mean_plain(Xt, tables)
+    moved = (got != finite).nonzero()[:, 0].tolist()
+    assert set(moved) <= {3, 40, 77, 100} and moved
+    torch.testing.assert_close(got, extended_path_lengths(forest, Xt), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_gather(JaxForest(*arrays), X)), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,features,unused_p", [(33, 40, 0.0), (40, 40, 0.3), (274, 274, 0.2)])
+def test_dense_table_is_the_jax_table_permuted(k, features, unused_p):
+    """The slot-minor heap-order weight table holds the JAX package's
+    ``dense_hyperplane_table`` (node-major, level-concat order): the same
+    weight at every internal-capable slot and coordinate, zeros elsewhere."""
+    rng = np.random.default_rng(5000 + k)
+    arrays = random_extended_forest(rng, 3, 4, features, k, unused_p=unused_p)
+    jf = JaxForest(*arrays)
+    tables = ext_dense.dense_hyperplane_table(extended_forest_from_arrays(*arrays, device="cpu"))
+    t_n, width, m4 = tables.weight.shape
+    m = jf.indices.shape[1]
+    m_int = (m + 1) // 2 - 1
+    want = np.asarray(jax_dense_table(jf, 128, 384))  # [T, m_pad, f_pad], concat order
+    position = np.argsort(np.asarray(_concat_order(m)))  # table slot of each heap slot
+    got = tables.weight.numpy()
+    assert width == features and m4 == (m_int + 3) // 4 * 4
+    np.testing.assert_array_equal(got[:, :, :m_int], want[:, position[:m_int], :width].transpose(0, 2, 1))
+    assert not got[:, :, m_int:].any() and not want[:, :, width:].any()
+    assert not want[:, position[m_int:]].any()  # leaf-level slots carry no weights
+
+
 def _one_node_forest(coords, weights, offset, k, sizes=(2, 50)):
     """One tree of height 1: the root's hyperplane, leaves of ``sizes``."""
     indices = np.full((1, 3, k), -1, np.int32)
@@ -141,8 +225,8 @@ def test_duplicate_coordinates_merge_like_the_reference():
     np.testing.assert_array_equal(sparse.weight[0, 0].numpy(), np.float32([-0.25, 1.25, 0.0]))
     assert sparse.min_features == 4
     dense = ext_dense.dense_hyperplane_table(forest)
-    np.testing.assert_array_equal(dense.weight[0, 0].numpy(), np.float32([0, -0.25, 0, 1.25]))
-    assert dense.kind[0, 0] == 1
+    np.testing.assert_array_equal(dense.weight[0, :, 0].numpy(), np.float32([0, -0.25, 0, 1.25]))
+    assert dense.kind[0, 0] == ext_dense.KIND_INTERNAL | ext_dense.KIND_ABSENT  # coordinates 0 and 2
     rng = np.random.default_rng(3)
     X = finite_rows(rng, 1024, 4)
     want = np.asarray(jax_pallas(JaxForest(*arrays), X, interpret=True))
@@ -161,12 +245,13 @@ def test_dense_table_marks_zero_weights_and_unused_coordinates():
     """A present coordinate whose weights cancel is stored as -0.0 (it
     still reads x[f], so an infinite x[f] makes the dot NaN and the row goes
     left); an absent one is +0.0 and skipped; a node with an unused
-    coordinate is kind 2 and adds x[0] * 0."""
+    coordinate has the kind bit KIND_UNUSED and adds x[0] * 0."""
     arrays = _one_node_forest([2, 2, 1], [0.5, -0.5, 1.0], -5.0, 4)
     forest = extended_forest_from_arrays(*arrays, device="cpu")
     dense = ext_dense.dense_hyperplane_table(forest)
-    bits = dense.weight[0, 0].view(torch.int32).numpy()
-    assert bits[0] == 0 and bits[2] == np.float32(-0.0).view(np.int32) and dense.kind[0, 0] == 2
+    bits = dense.weight[0, :, 0].view(torch.int32).numpy()
+    assert bits[0] == 0 and bits[2] == np.float32(-0.0).view(np.int32)
+    assert dense.kind[0, 0] == ext_dense.KIND_INTERNAL | ext_dense.KIND_UNUSED | ext_dense.KIND_ABSENT
     X = np.array([[0, 0, 0], [0, 0, np.inf], [np.inf, 0, 0], [0, 1, 0]], np.float32)
     left, right = np.float32(1 + float(port_c(2))), np.float32(1 + float(port_c(50)))
     want = np.array([right, left, left, right], np.float32)

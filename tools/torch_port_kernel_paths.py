@@ -1,25 +1,50 @@
 #!/usr/bin/env python3
-"""Time variants of the EIF kernels against the committed sources, on a CUDA card.
+"""Time other data paths and earlier designs of the kernels against the
+committed sources, on a CUDA card.
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit::
 
+    python3 tools/torch_port_kernel_paths.py --extract-old REV   # where git is
     python3 tools/torch_port_kernel_paths.py
 
+``--extract-old REV`` writes the package and ``chip_smoke.py`` as they
+were at git revision ``REV`` to ``build/kernel_paths/old/`` and exits; the
+copy travels with the checkout to a machine without git. The second
+command then builds the dense kernels of that tree (``csrc/dense.cu``, and
+``csrc/ext_dense.cu``, which then held the dense-table kernel too) beside
+the committed ones and times each earlier design against the committed
+one in turns (old, new, new, old) at the shapes of the main path of
+``chip_smoke.py``: the
+standard dense kernel on the mammography model (100 trees, height 8,
+F = 6) and 1,000,000 rows, the dense-table kernel on a seeded F = k = 274
+forest and 65,536 rows (its earlier node-major table and kind codes
+rebuilt from the committed table). Each pair must agree bit for bit. It
+also measures ``chip_smoke.py``'s serving latency (``model.score`` of 1,
+64 and 4,096 rows, ``auto`` and ``dense``, both fixture models) of the
+old tree and of this one, six runs each, in turns that alternate which
+runs first, each in a process of its own.
+
 Each variant is a textual edit of a copy of a kernel source, built under
-``build/``, that takes another data path: the walk (``csrc/ext_walk.cu``)
-reading its rows and tables through the read-only path (``__ldg``) instead
-of plain loads; the sparse and the dense-table kernel
+``build/``, that takes another data path or another size: the walk
+(``csrc/ext_walk.cu``) reading its rows and tables through the read-only
+path (``__ldg``) instead of plain loads; the sparse kernel
 (``csrc/ext_dense.cu``) reading x[f] through L1 instead of the block's
-shared-memory tile; the sparse kernel testing every coordinate for the
-merged-away marker -1 instead of ending the node's terms at the first one.
-The script swaps each variant into the port's wrapper and times it against
-the committed build at the shapes of the main path of ``chip_smoke.py``:
-the mammography EIF (100 trees, height 8, k = 6) on 1,000,000 rows for the
-walk and the sparse kernel, a seeded F = k = 274 forest on 65,536 rows for
-the dense-table kernel. Every variant must give the committed build's
-result bit for bit. Times are CUDA-event medians, taken in turns
-(committed, variant, variant, committed).
+shared-memory tile, and testing every coordinate for the merged-away marker
+-1 instead of ending the node's terms at the first one; the standard dense
+kernel (``csrc/dense.cu``) with 8 warps a block instead of 4, and with its
+32-row loop bounded by the warp's rows and unrolled 8 times instead of
+fully; the dense-table kernel (``csrc/ext_gemm.cu``) with 128-slot or
+256-slot column tiles at every height instead of the width it picks from
+the tree, with 192-slot tiles where it takes 256, held to the registers of
+two blocks an SM, with 8-feature chunks instead of 16, and with a 2-stage
+ring instead of 3. The script swaps each variant into the port's wrapper
+and times it against the committed build at the same shapes (the walk and
+the sparse kernel on the mammography EIF, 100 trees, height 8, k = 6, and
+the same 1,000,000 rows; the 128- and 256-slot tiles also on seeded F = k
+= 274 forests of height 7 and 10). Every variant must give the committed build's result bit for bit. Times are
+CUDA-event medians, taken in turns (committed, variant, variant,
+committed).
 
 It also traces one warm ``model.score`` of the standard and of the EIF
 fixture model, in turns, and reports whether each trace holds the
@@ -34,6 +59,7 @@ from __future__ import annotations
 import ctypes
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -43,14 +69,21 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 VARIANT_DIR = ROOT / "build" / "kernel_paths"
+OLD_TREE = VARIANT_DIR / "old"
+OLD_SOURCES = ("dense", "ext_dense")
 STD_MODEL = ROOT / "tests" / "resources" / "torch_port" / "mammography_std" / "model"
 EIF_MODEL = ROOT / "tests" / "resources" / "torch_port" / "mammography_eif" / "model"
 MAMMOGRAPHY = ROOT / "tests" / "resources" / "mammography.csv"
 ROWS, HIGH_DIM_ROWS, SEED = 1_000_000, 65_536, 0
 
-# variant -> (library, kernel it is timed on, [(text in the source, replacement), ...])
+# the dense-table kernel's choice of column-tile width
+GEMM_TILES = "return m4 > 128 ? launch<4>"
+# the dense-table kernel at every height the tool times it
+GEMM_HEIGHTS = ("ext_dense_mean_h7", "ext_dense_mean", "ext_dense_mean_h10")
+
+# variant -> (library, calls it is timed on, [(text in the source, replacement), ...])
 VARIANTS = {
-    "walk_reads_through_ldg": ("ext_walk", "ext_walk_sum", [
+    "walk_reads_through_ldg": ("ext_walk", ("ext_walk_sum",), [
         ("float lv = t_leaf[0];", "float lv = __ldg(t_leaf);"),
         ("dot = __fmul_rn(x[ni[1]], nw[1]);", "dot = __fmul_rn(__ldg(x + __ldg(ni + 1)), __ldg(nw + 1));"),
         ("dot = __fmaf_rn(x[ni[0]], nw[0], dot);", "dot = __fmaf_rn(__ldg(x + __ldg(ni)), __ldg(nw), dot);"),
@@ -58,32 +91,86 @@ VARIANTS = {
         ("(dot >= t_off[node] ? 1 : 0);", "(dot >= __ldg(t_off + node) ? 1 : 0);"),
         ("lv = t_leaf[node];", "lv = __ldg(t_leaf + node);"),
     ]),
-    "sparse_x_through_l1": ("ext_dense", "ext_sparse_mean", [
-        ("  while (b > 32 && (long long)f * b * 4 > kMaxTileBytes) b /= 2;\n",
-         "  if (kDense) while (b > 32 && (long long)f * b * 4 > kMaxTileBytes) b /= 2;\n"),
-        ("  const bool smem_x = (long long)f * b * 4 <= kMaxTileBytes;\n",
-         "  const bool smem_x = kDense && (long long)f * b * 4 <= kMaxTileBytes;\n"),
-    ]),
-    "sparse_tests_every_coordinate": ("ext_dense", "ext_sparse_mean", [
-        ("if (f < 0) break;  // merged away, and so are the rest\n              dot = __fmaf_rn(",
-         "if (f >= 0) dot = __fmaf_rn("),
-    ]),
-    "dense_x_through_l1": ("ext_dense", "ext_dense_mean", [
+    "sparse_x_through_l1": ("ext_dense", ("ext_sparse_mean",), [
         ("  while (b > 32 && (long long)f * b * 4 > kMaxTileBytes) b /= 2;\n", ""),
         ("  const bool smem_x = (long long)f * b * 4 <= kMaxTileBytes;\n", "  const bool smem_x = false;\n"),
     ]),
+    "sparse_tests_every_coordinate": ("ext_dense", ("ext_sparse_mean",), [
+        ("if (f < 0) break;  // merged away, and so are the rest\n            dot = __fmaf_rn(",
+         "if (f >= 0) dot = __fmaf_rn("),
+    ]),
+    "dense_8_warps": ("dense", ("dense_mean",), [("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")]),
+    "dense_rows_loop_unrolled_8": ("dense", ("dense_mean",), [
+        ("#pragma unroll\n        for (int j = 0; j < 32; ++j) {", "#pragma unroll 8\n        for (int j = 0; j < rows; ++j) {"),
+    ]),
+    "gemm_128_slot_tiles": ("ext_gemm", GEMM_HEIGHTS, [(GEMM_TILES, "return false ? launch<4>")]),
+    "gemm_256_slot_tiles": ("ext_gemm", GEMM_HEIGHTS, [(GEMM_TILES, "return true ? launch<4>")]),
+    # h = 8 only: at h = 10 its sixth tile ends at slot 1151, past a row's 32 words of bits
+    "gemm_192_slot_tiles": ("ext_gemm", ("ext_dense_mean",), [(GEMM_TILES, "return m4 > 128 ? launch<3>")]),
+    "gemm_two_blocks_per_sm": ("ext_gemm", ("ext_dense_mean",), [
+        ("__launch_bounds__(kThreads, 1)", "__launch_bounds__(kThreads, 2)"),
+    ]),
+    "gemm_8_feature_chunks": ("ext_gemm", ("ext_dense_mean",), [
+        ("constexpr int kBK = 16;", "constexpr int kBK = 8;"),
+    ]),
+    "gemm_2_stages": ("ext_gemm", ("ext_dense_mean",), [("constexpr int kStages = 3;", "constexpr int kStages = 2;")]),
 }
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def extract_old(rev: str) -> None:
+    """The package and ``chip_smoke.py`` at git revision ``rev`` into ``OLD_TREE``."""
+    shutil.rmtree(OLD_TREE, ignore_errors=True)
+    OLD_TREE.mkdir(parents=True)
+    archive = subprocess.run(["git", "archive", rev, "isoforest_tpu_torch", "chip_smoke.py"], cwd=ROOT,
+                             capture_output=True, check=True).stdout
+    subprocess.run(["tar", "-x", "-C", str(OLD_TREE)], input=archive, check=True)
+    (OLD_TREE / "REVISION").write_text(rev + "\n")
+
+
+SERVING = """
+import json, sys
+import numpy as np
+root, std, eif, csv = sys.argv[1:5]
+sys.path.insert(0, root)
+from chip_smoke import serving_latency
+from isoforest_tpu_torch import load_model
+X = np.loadtxt(csv, delimiter=",", comments="#").astype(np.float32)[:, :-1]
+X = np.ascontiguousarray(X[np.random.default_rng(0).integers(0, len(X), 4096)])
+print(json.dumps({name: serving_latency(load_model(path), X, ("auto", "dense"))
+                  for name, path in (("std", std), ("eif", eif))}))
+"""
+
+
+def serving_in_turns(rounds: int = 3) -> None:
+    """Serving latency of the old tree and of this one, in turns (old, new,
+    new, old, then new, old, old, new, ...), each in a process of its own,
+    then every (model, strategy, batch)'s medians side by side."""
+    runs = {"old": [], "new": []}
+    for r in range(rounds):
+        order = ("old", "new", "new", "old") if r % 2 == 0 else ("new", "old", "old", "new")
+        for which in order:
+            root = OLD_TREE if which == "old" else ROOT
+            out = subprocess.run([sys.executable, "-c", SERVING, str(root), str(STD_MODEL), str(EIF_MODEL),
+                                  str(MAMMOGRAPHY)], capture_output=True, text=True, check=True, timeout=600)
+            latency = json.loads(out.stdout.strip().splitlines()[-1])
+            runs[which].append(latency)
+            emit({"serving": which, "latency": latency})
+    emit({"serving_medians_ms": {
+        f"{model}_{key}": {which: [run[model][key]["median_ms"] for run in runs[which]] for which in runs}
+        for model in runs["old"][0] for key in runs["old"][0][model]}})
+
+
 def build_variants() -> dict:
-    """``{variant: path}`` of the libraries, all nvcc started together."""
+    """``{variant: path}`` of the libraries (the edited variants and the
+    earlier designs, ``old_dense`` and ``old_ext_dense``), all nvcc started
+    together."""
     from isoforest_tpu_torch.ops import _build
 
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    sources = {}
     for variant, (name, _, edits) in VARIANTS.items():
         edited = (_build.CSRC_DIR / _build.SOURCES[name]).read_text()
         for old, new in edits:
@@ -92,7 +179,15 @@ def build_variants() -> dict:
             edited = edited.replace(old, new)
         src = VARIANT_DIR / f"{name}-{variant}.cu"
         src.write_text(edited)
-        lib = VARIANT_DIR / f"lib{name}-{variant}.so"
+        sources[variant] = src
+    for name in OLD_SOURCES:
+        src = OLD_TREE / "isoforest_tpu_torch" / "csrc" / f"{name}.cu"
+        if not src.is_file():
+            raise SystemExit(f"{src} is missing: run with --extract-old REV where git is first")
+        sources[f"old_{name}"] = src
+    procs = {}
+    for variant, src in sources.items():
+        lib = VARIANT_DIR / f"lib{variant}.so"
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
         procs[variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
@@ -129,45 +224,117 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def compare_paths(libs, X_big, eif_model) -> None:
+def in_turns(first: str, first_call, second: str, second_call, reps: int) -> dict:
+    """Results and CUDA-event times of two calls, in turns (first, second,
+    second, first); raises unless the results are equal bit for bit."""
+    import torch
+
+    runs, outputs = {first: [], second: []}, {}
+    for which, call in ((first, first_call), (second, second_call), (second, second_call), (first, first_call)):
+        outputs[which] = call()
+        runs[which].append(time_ms(call, reps))
+    equal = bool(torch.equal(outputs[first], outputs[second]))
+    if not equal:
+        raise SystemExit(f"{first} and {second} differ: {float((outputs[first] - outputs[second]).abs().max())}")
+    return {"bitwise_equal": equal, f"{first}_ms": runs[first], f"{second}_ms": runs[second],
+            f"{second}_over_{first}": statistics.mean(runs[second]) / statistics.mean(runs[first])}
+
+
+def kernel_calls(X_big, std_model, eif_model) -> dict:
+    """``{call: (call, signatures, reps, shape)}`` at the main path's shapes
+    (and the dense-table kernel at heights 7 and 10 besides its cell's 8),
+    and the inputs of the dense-table kernel's cell."""
     import numpy as np
     import torch
 
     from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
-    from isoforest_tpu_torch.ops import _build, ext_dense, ext_walk
+    from isoforest_tpu_torch.ops import dense, ext_dense, ext_walk
     from isoforest_tpu_torch.testing import random_extended_forest, rows
 
     dev = torch.device("cuda")
+    Xd = torch.from_numpy(X_big).to(dev)
+    std_tables = dense.pack_standard(std_model.forest)
+    wt = ext_walk.walk_tables_extended(eif_model.forest)
+    st = ext_dense.sparse_hyperplane_tables(eif_model.forest)
     rng = np.random.default_rng(SEED + 1)
     f5 = extended_forest_from_arrays(*random_extended_forest(rng, 100, 8, 274, 274, split_p=1.0))
     X5 = torch.from_numpy(rows(rng, HIGH_DIM_ROWS, 274)).to(dev)
-    Xd = torch.from_numpy(X_big).to(dev)
-    wt = ext_walk.walk_tables_extended(eif_model.forest)
-    st = ext_dense.sparse_hyperplane_tables(eif_model.forest)
     dt = ext_dense.dense_hyperplane_table(f5)
+    rows_shape = {"rows": ROWS}
     calls = {
-        "ext_walk_sum": (lambda: ext_walk.ext_walk_sum(Xd, wt), ext_walk._SIGNATURES, 9),
-        "ext_sparse_mean": (lambda: ext_dense.ext_sparse_mean(Xd, st), ext_dense._SIGNATURES, 7),
-        "ext_dense_mean": (lambda: ext_dense.ext_dense_mean(X5, dt), ext_dense._SIGNATURES, 3),
+        "dense_mean": (lambda: dense.dense_mean(Xd, std_tables), dense._SIGNATURES, 7, rows_shape),
+        "ext_dense_mean": (lambda: ext_dense.ext_dense_mean(X5, dt), ext_dense._DENSE_SIGNATURES, 3,
+                           {"rows": HIGH_DIM_ROWS, "features": 274, "height": 8}),
+        "ext_walk_sum": (lambda: ext_walk.ext_walk_sum(Xd, wt), ext_walk._SIGNATURES, 9, rows_shape),
+        "ext_sparse_mean": (lambda: ext_dense.ext_sparse_mean(Xd, st), ext_dense._SPARSE_SIGNATURES, 7, rows_shape),
     }
-    _build.build(["ext_walk", "ext_dense"])
-    for variant, (name, kernel, _) in VARIANTS.items():
-        call, signatures, reps = calls[kernel]
-        committed = load_variant(_build.library_path(name), signatures)
-        lib = load_variant(libs[variant], signatures)
-        runs = {"committed": [], variant: []}
-        outputs = {}
-        for which, chosen in (("committed", committed), (variant, lib), (variant, lib), ("committed", committed)):
-            _build._LIBS[name] = chosen
-            outputs[which] = call()
-            runs[which].append(time_ms(call, reps))
-        _build._LIBS[name] = committed
-        equal = bool(torch.equal(outputs["committed"], outputs[variant]))
-        emit({"kernel": kernel, "variant": variant, "bitwise_equal": equal,
-              "committed_ms": runs["committed"], "variant_ms": runs[variant],
-              "variant_over_committed": statistics.mean(runs[variant]) / statistics.mean(runs["committed"])})
-        if not equal:
-            raise SystemExit(f"{kernel} {variant}: the result differs from the committed build's")
+    for height in (7, 10):
+        table = ext_dense.dense_hyperplane_table(
+            extended_forest_from_arrays(*random_extended_forest(rng, 100, height, 274, 274, split_p=1.0)))
+        calls[f"ext_dense_mean_h{height}"] = (lambda table=table: ext_dense.ext_dense_mean(X5, table),
+                                              ext_dense._DENSE_SIGNATURES, 3,
+                                              {"rows": HIGH_DIM_ROWS, "features": 274, "height": height})
+    return calls, X5, dt
+
+
+def with_lib(name: str, lib, call):
+    """``call`` with library ``name`` of the port's wrappers swapped for ``lib``."""
+    from isoforest_tpu_torch.ops import _build
+
+    def run():
+        _build._LIBS[name] = lib
+        return call()
+
+    return run
+
+
+def compare_designs(libs, calls, X5, dt) -> None:
+    """Each redesigned dense kernel against its earlier design."""
+    import torch
+
+    from isoforest_tpu_torch.ops import _build, dense, ext_dense
+
+    call, signatures, reps, _ = calls["dense_mean"]
+    committed = load_variant(_build.library_path("dense"), signatures)
+    old = load_variant(libs["old_dense"], signatures)
+    result = in_turns("old", with_lib("dense", old, call), "new", with_lib("dense", committed, call), reps)
+    _build._LIBS["dense"] = committed
+    emit({"kernel": "dense_mean", "rows": ROWS, **result})
+
+    t_count, m = dt.value.shape
+    m_int = (m + 1) // 2 - 1
+    # the earlier design's table: node-major weights; kind 2 at a node with
+    # unused coordinates, 1 at another internal node
+    old_weight = dt.weight[:, :, :m_int].transpose(1, 2).contiguous()
+    old_kind = torch.where((dt.kind & ext_dense.KIND_INTERNAL) != 0,
+                           torch.where((dt.kind & ext_dense.KIND_UNUSED) != 0, 2, 1), 0).int().contiguous()
+    old_lib = load_variant(libs["old_ext_dense"], ext_dense._DENSE_SIGNATURES)
+
+    def old_call():
+        out = torch.empty(X5.shape[0], dtype=torch.float32, device=X5.device)
+        err = old_lib.ext_dense_mean(X5.data_ptr(), X5.shape[0], X5.shape[1], dt.value.data_ptr(),
+                                     old_kind.data_ptr(), old_weight.data_ptr(), old_weight.shape[2], t_count,
+                                     dense.height_of(m), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "earlier ext_dense_mean")
+        return out
+
+    result = in_turns("old", old_call, "new", calls["ext_dense_mean"][0], calls["ext_dense_mean"][2])
+    emit({"kernel": "ext_dense_mean", "rows": X5.shape[0], "features": X5.shape[1], **result})
+
+
+def compare_paths(libs, calls) -> None:
+    """Each variant against the committed build of its source."""
+    from isoforest_tpu_torch.ops import _build
+
+    for variant, (name, call_names, _) in VARIANTS.items():
+        for call_name in call_names:
+            call, signatures, reps, shape = calls[call_name]
+            committed = load_variant(_build.library_path(name), signatures)
+            lib = load_variant(libs[variant], signatures)
+            result = in_turns("committed", with_lib(name, committed, call), "variant", with_lib(name, lib, call),
+                              reps)
+            _build._LIBS[name] = committed
+            emit({"kernel": call_name.split("_h")[0], "variant": variant, **shape, **result})
 
 
 def trace_copies(X_big, std_model, eif_model) -> None:
@@ -196,6 +363,9 @@ def trace_copies(X_big, std_model, eif_model) -> None:
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--extract-old":
+        extract_old(sys.argv[2])
+        return 0
     import numpy as np
     import torch
 
@@ -203,6 +373,7 @@ def main() -> int:
         print("torch_port_kernel_paths: no CUDA device is available", file=sys.stderr)
         return 2
     from isoforest_tpu_torch import load_model
+    from isoforest_tpu_torch.ops import _build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -217,7 +388,11 @@ def main() -> int:
     X_big = (X_m[idx] + jitter * X_m.std(axis=0)).astype(np.float32)
     std_model, eif_model = load_model(str(STD_MODEL)), load_model(str(EIF_MODEL))
     trace_copies(X_big, std_model, eif_model)
-    compare_paths(libs, X_big, eif_model)
+    _build.build()
+    calls, X5, dt = kernel_calls(X_big, std_model, eif_model)
+    compare_designs(libs, calls, X5, dt)
+    compare_paths(libs, calls)
+    serving_in_turns()
     print(smi, flush=True)
     return 0
 
