@@ -45,17 +45,23 @@ Then the same for the extended (EIF) forest:
    dense-walk kernel), and 65,536 rows through ``score_matrix(...,
    strategy="dense")`` of a seeded, fully extended forest at the high-dim
    width (F = k = 274, 100 trees, height 8: the dense-table kernel); then
-   each kernel against its plain version on all of its rows (the two dense
-   kernels exactly), CUDA-event timings and bounds, and beside the
+   each kernel against its plain version on all of its rows, the two path
+   kernels (the walk and the sparse one) also with their small-batch
+   launch (a warp a row, four 32-tree rounds, the last ragged) on the
+   first 4,096 rows, CUDA-event timings and bounds, and beside the
    dense-table kernel the time of ``torch.matmul`` of its rows by all its
    weights as one [274 x 25,500] float32 product (``matmul_ms``: the dots
-   alone, not the kernel's function; the port never calls it);
+   alone, not the kernel's function; the port never calls it); every
+   kernel is held to its plain version exactly (max |delta| 0);
 10. ext_edges: seeded synthetic EIF forests (k in {1, 6, 8, 13, 16, 17, 32,
-    33, 40, 274, 1000}, F in {1, 6, 13, 17, 33, 40, 274, 1000}, root-leaf
-    trees, heights 0 to the dense fence and one above, N in {1, 129, 1000,
-    1023, 1025}, NaN and +-inf rows, a tile of finite rows with a few
-    non-finite ones, tie-heavy quantized rows): each kernel against its
-    plain version, the dense-table kernel exactly;
+    33, 40, 274, 1000}, F in {1, 6, 13, 16, 17, 33, 40, 274, 1000}, T in
+    {13, 77, 100}, root-leaf trees, heights 0 to the dense fence and one
+    above, N in {1, 31, 33, 64, 129, 1000, 1023, 1025, 4096}, NaN and
+    +-inf rows, a tile of finite rows with a few non-finite ones,
+    tie-heavy quantized rows, a forest with duplicate coordinates): each
+    kernel against its plain
+    version exactly, the two path kernels (the walk and the sparse one)
+    with both their bulk and small-batch launches;
 11. ext_serving: EIF ``model.score`` latency on batches of 1, 64 and 4,096
     rows, ``"auto"`` and ``"dense"``.
 
@@ -208,7 +214,7 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
 
     from isoforest_tpu_torch import load_model, score_matrix
     from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
-    from isoforest_tpu_torch.ops import dense, ext_dense, ext_walk
+    from isoforest_tpu_torch.ops import dense, ext_dense, ext_path, ext_walk
     from isoforest_tpu_torch.ops.traversal import extended_path_lengths
     from isoforest_tpu_torch.testing import finite_rows, random_extended_forest, rows
     from isoforest_tpu_torch.utils.math import score_from_path_length
@@ -250,9 +256,9 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     # 9. the EIF main path: counters at 0 just before, read just after
     f5 = extended_forest_from_arrays(*random_extended_forest(rng, 100, 8, 274, 274, split_p=1.0))
     X5 = torch.from_numpy(rows(rng, HIGH_DIM_ROWS, 274)).to(dev)
-    counters = (ext_walk.ext_walk_sum, ext_dense.ext_sparse_mean, ext_dense.ext_dense_mean)
-    for c in counters:
-        c.launches = 0
+    for name in ext_path.launches:
+        ext_path.launches[name] = 0
+    ext_dense.ext_dense_mean.launches = 0
     t0 = time.perf_counter()
     s_walk = model.score(X_big, strategy="walk")
     torch.cuda.synchronize()
@@ -263,7 +269,7 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     s_high = score_matrix(f5, X5, 256, strategy="dense")
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = {c.__name__: c.launches for c in counters}
+    launches = {**ext_path.launches, "ext_dense_mean": ext_dense.ext_dense_mean.launches}
     require(all(v > 0 for v in launches.values()), f"an EIF kernel did not launch: {launches}")
     for name, s, n_rows in (("walk", s_walk, FULL_ROWS), ("dense", s_dense, FULL_ROWS),
                             ("high_dim_dense", s_high, HIGH_DIM_ROWS)):
@@ -272,7 +278,7 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
 
     Xd = torch.from_numpy(X_big).to(dev)
     wt = ext_walk.walk_tables_extended(model.forest)
-    st = ext_dense.sparse_hyperplane_tables(model.forest)
+    st = ext_dense.sparse_path_records(model.forest)
     dt = ext_dense.dense_hyperplane_table(f5)
 
     def chunked(plain, X, tables, rows_per=1 << 17):
@@ -293,13 +299,24 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     # the plain versions are slow references: each runs once, timed, and its
     # result is what the kernel is held to
     walk_plain, walk_plain_ms = timed_once(lambda: chunked(ext_walk.ext_walk_sum_plain, Xd, wt))
-    sparse_plain, sparse_plain_ms = timed_once(lambda: chunked(ext_dense.ext_sparse_mean_plain, Xd, st))
+    # (the sparse kernel's reference evaluates every slot, from heap tables)
+    sparse_plain, sparse_plain_ms = timed_once(
+        lambda: chunked(ext_dense.ext_sparse_mean_plain, Xd, ext_dense.sparse_hyperplane_tables(model.forest)))
     dense_plain, dense_plain_ms = timed_once(lambda: chunked(ext_dense.ext_dense_mean_plain, X5, dt, 1 << 15))
-    walk_err = float((ext_walk.ext_walk_sum(Xd, wt) - walk_plain).abs().max())
-    sparse_err = float((ext_dense.ext_sparse_mean(Xd, st) - sparse_plain).abs().max())
+
+    def path_errs(name, tables, want):
+        """Max |kernel - plain| of path kernel ``name``: its bulk launch on
+        all rows, its small-batch launch on the first 4,096."""
+        bulk = ext_path.launch(name, Xd, tables, tree_parallel=False)
+        small = ext_path.launch(name, Xd[:4096], tables, tree_parallel=True)
+        return float((bulk - want).abs().max()), float((small - want[:4096]).abs().max())
+
+    walk_err, walk_small_err = path_errs("ext_walk_sum", wt, walk_plain)
+    sparse_err, sparse_small_err = path_errs("ext_sparse_mean", st, sparse_plain)
     dense_err = float((ext_dense.ext_dense_mean(X5, dt) - dense_plain).abs().max())
-    require(walk_err <= 1e-5, f"EIF walk kernel vs plain: {walk_err}")
-    require(sparse_err <= 1e-5, f"EIF sparse kernel vs plain: {sparse_err}")
+    require(walk_err == 0.0 and walk_small_err == 0.0, f"EIF walk kernel vs plain: {walk_err}, {walk_small_err}")
+    require(sparse_err == 0.0 and sparse_small_err == 0.0,
+            f"EIF sparse kernel vs plain: {sparse_err}, {sparse_small_err}")
     require(dense_err == 0.0, f"EIF dense-table kernel vs plain: {dense_err}")
     # the dots alone as one float32 product (TF32 is off): a yardstick, not the function
     m_int5 = (dt.value.shape[1] + 1) // 2 - 1
@@ -327,18 +344,20 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     # evaluates every internal slot of every tree; that count, at peak, is
     # printed as *_algorithm_ops_ms beside the bound and not as it.
     def visits(forest, X):
-        """Internal slots the rows visit (dots in float32 by torch.sum: a
-        tie may route one ulp otherwise than in a kernel, a few visits)."""
-        tables = ext_walk.walk_tables_extended(forest)
+        """Internal slots the rows visit, from the forest's own arrays (dots
+        in float32 by torch.sum: a tie may route one ulp otherwise than in a
+        kernel, a few visits)."""
         internal = forest.is_internal
+        index = forest.indices.clamp(min=0).long()
+        weight = torch.where(forest.indices >= 0, forest.weights, torch.zeros((), device=dev))
         total = torch.zeros((), dtype=torch.float64, device=dev)
         for t in range(forest.num_trees):
             node = torch.zeros(X.shape[0], dtype=torch.long, device=dev)
             for _ in range(forest.height):
                 inside = internal[t][node]
                 total += inside.sum()
-                dot = (X.gather(1, tables.index[t][node].long()) * tables.weight[t][node]).sum(dim=1)
-                node = torch.where(inside, 2 * node + 1 + (dot >= tables.offset[t][node]).long(), node)
+                dot = (X.gather(1, index[t][node]) * weight[t][node]).sum(dim=1)
+                node = torch.where(inside, 2 * node + 1 + (dot >= forest.offset[t][node]).long(), node)
         return float(total)
 
     def nbytes(*fields):
@@ -364,7 +383,9 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
           "walk_vs_dense_max_abs_score": float((s_walk - s_dense).abs().max()),
           "walk_vs_gather_max_abs_score_4096": gather_gap,
           "walk_kernel_vs_plain_max_abs_sum": walk_err,
+          "walk_small_batch_vs_plain_max_abs_sum_4096": walk_small_err,
           "sparse_kernel_vs_plain_max_abs_mean": sparse_err,
+          "sparse_small_batch_vs_plain_max_abs_mean_4096": sparse_small_err,
           "dense_kernel_vs_plain_max_abs_mean": dense_err,
           "mean_internal_visits_per_row_tree": visited / (n * t_n),
           "high_dim_mean_internal_visits_per_row_tree": visited5 / (n5 * t5),
@@ -388,7 +409,7 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
         {"features": 40, "k": 32, "height": 5, "rows": 1025, "data": "ties"},
         {"features": 40, "k": 33, "height": 5, "rows": 1023, "data": "nonfinite"},
         {"features": 274, "k": 33, "height": 8, "rows": 1, "data": "nonfinite"},
-        # rows too wide for the sparse kernel's shared-memory tile: x[f] from L1
+        # rows too wide for the path kernels' shared-memory tile: x[f] from L1
         {"features": 1000, "k": 8, "height": 6, "rows": 1023, "data": "nonfinite"},
         {"features": 1000, "k": 40, "height": 4, "rows": 1025, "data": "nonfinite"},
         # the dense-table kernel at its tile boundaries: widths off the 16-feature
@@ -402,7 +423,30 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
         {"features": 274, "k": 274, "height": 10, "rows": 1000, "data": "mixed"},
         {"features": 274, "k": 40, "height": 8, "rows": 129, "data": "mixed"},
         {"features": 1000, "k": 1000, "height": 6, "rows": 1025, "data": "mixed"},
+        # the path kernels on both sides of the small-batch switch: N from one
+        # warp's row to 4,096, the walk's paired order's last k (16) and the
+        # chain's first (17), the sparse kernel's widest k (32), h = 0 to 10
+        {"features": 6, "k": 6, "height": 8, "rows": 1, "data": "ties"},
+        {"features": 6, "k": 6, "height": 0, "rows": 31, "data": "nonfinite"},
+        {"features": 16, "k": 16, "height": 8, "rows": 33, "data": "ties"},
+        {"features": 17, "k": 17, "height": 10, "rows": 64, "data": "nonfinite"},
+        {"features": 40, "k": 32, "height": 10, "rows": 4096, "data": "ties"},
+        {"features": 6, "k": 6, "height": 10, "rows": 4096, "data": "nonfinite"},
+        {"features": 17, "k": 17, "height": 8, "rows": 4096, "data": "ties"},
+        {"features": 16, "k": 16, "height": 0, "rows": 1, "data": "nonfinite"},
+        {"features": 6, "k": 6, "height": 8, "rows": 64, "data": "nonfinite", "duplicates": True},
+        # more than two 32-tree rounds of the small-batch kernel, the last ragged
+        {"features": 6, "k": 6, "height": 8, "rows": 4096, "data": "ties", "trees": 100},
+        {"features": 17, "k": 17, "height": 10, "rows": 33, "data": "nonfinite", "trees": 77},
+        {"features": 40, "k": 32, "height": 6, "rows": 1, "data": "ties", "trees": 77},
     ]
+
+    def path_err(name, want, x, tables):
+        """Max |kernel - plain| over path kernel ``name``'s bulk and
+        small-batch launches."""
+        return max(float((ext_path.launch(name, x, tables, tree_parallel=small) - want).abs().max())
+                   for small in (False, True))
+
     edges = []
     for case in cases:
         f_e = case["features"]
@@ -414,23 +458,28 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
             Xe[min(70, case["rows"] - 1), f_e // 2] = -np.inf
         else:
             Xe = rows(rng, case["rows"], f_e)
-        arrays = random_extended_forest(rng, 13, case["height"], f_e, case["k"], split_p=0.85,
+        trees = case.get("trees", 13)
+        arrays = random_extended_forest(rng, trees, case["height"], f_e, case["k"], split_p=0.85,
                                         intercepts=Xe[:32], unused_p=0.2)
+        if case.get("duplicates"):  # every other internal node lists its first coordinate twice
+            arrays[0][:, ::2, 1] = np.where(arrays[0][:, ::2, 1] >= 0, arrays[0][:, ::2, 0], -1)
         forest = extended_forest_from_arrays(*arrays)
         xe = torch.from_numpy(Xe).to(dev)
         wte = ext_walk.walk_tables_extended(forest)
-        w_err = float((ext_walk.ext_walk_sum(xe, wte) - ext_walk.ext_walk_sum_plain(xe, wte)).abs().max())
-        row = dict(case, trees=13, walk_vs_plain=w_err)
-        require(w_err <= 1e-5, f"EIF walk edge case {row}")
+        w_err = path_err("ext_walk_sum", ext_walk.ext_walk_sum_plain(xe, wte), xe, wte)
+        row = dict(case, trees=trees, walk_vs_plain=w_err)
+        require(w_err == 0.0, f"EIF walk edge case {row}")
         tables = ext_dense.hyperplane_tables(forest)
-        kernel = ext_dense.ext_sparse_mean if case["k"] <= ext_dense.SPARSE_K_MAX else ext_dense.ext_dense_mean
-        plain = (ext_dense.ext_sparse_mean_plain if case["k"] <= ext_dense.SPARSE_K_MAX
-                 else ext_dense.ext_dense_mean_plain)
+        sparse = case["k"] <= ext_dense.SPARSE_K_MAX
+        kernel = ext_dense.ext_sparse_mean if sparse else ext_dense.ext_dense_mean
         if case["height"] <= dense.DENSE_MAX_HEIGHT:
-            d_err = float((kernel(xe, tables) - plain(xe, tables)).abs().max())
+            if sparse:
+                want = ext_dense.ext_sparse_mean_plain(xe, ext_dense.sparse_hyperplane_tables(forest))
+                d_err = path_err("ext_sparse_mean", want, xe, tables)
+            else:
+                d_err = float((kernel(xe, tables) - ext_dense.ext_dense_mean_plain(xe, tables)).abs().max())
             row[f"{kernel.__name__}_vs_plain"] = d_err
-            exact = kernel is ext_dense.ext_dense_mean
-            require(d_err == 0.0 if exact else d_err <= 1e-5, f"EIF dense edge case {row}")
+            require(d_err == 0.0, f"EIF dense edge case {row}")
         else:
             try:
                 kernel(xe, tables)
@@ -444,19 +493,20 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     # 11. serving-sized batches through the EIF model.score
     emit({"phase": "ext_serving", "latency": serving_latency(model, X_big, ("auto", "dense"))})
 
-    walk_src, sparse_src = "isoforest_tpu_torch/csrc/ext_walk.cu", "isoforest_tpu_torch/csrc/ext_dense.cu"
+    walk_src = sparse_src = "isoforest_tpu_torch/csrc/ext_walk.cu"
     entry = {"route": "cuda", "library_ms": None}
     return [
         {**entry, "name": "ext_walk_sum", "source": walk_src,
-         "replaces": "isoforest_tpu/ops/pallas_walk.py:345", "launches": launches["ext_walk_sum"],
-         "max_abs_err": walk_err, "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
+         "replaces": "isoforest_tpu/ops/pallas_walk.py:346", "launches": launches["ext_walk_sum"],
+         "max_abs_err": max(walk_err, walk_small_err), "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
          "bound_ms": walk_bound, "bound_by": walk_by, "rows": n, "plain_rows": n},
-        {**entry, "name": "ext_sparse_mean", "source": sparse_src, "replaces": "isoforest_tpu/ops/pallas_traversal.py:303",
-         "launches": launches["ext_sparse_mean"], "max_abs_err": sparse_err, "ms": times["sparse_ms"],
+        {**entry, "name": "ext_sparse_mean", "source": sparse_src, "replaces": "isoforest_tpu/ops/pallas_traversal.py:304",
+         "launches": launches["ext_sparse_mean"], "max_abs_err": max(sparse_err, sparse_small_err),
+         "ms": times["sparse_ms"],
          "plain_ms": times["sparse_plain_ms"], "bound_ms": sparse_bound, "bound_by": sparse_by,
          "rows": n, "plain_rows": n},
         {**entry, "name": "ext_dense_mean", "source": "isoforest_tpu_torch/csrc/ext_gemm.cu",
-         "replaces": "isoforest_tpu/ops/pallas_traversal.py:330",
+         "replaces": "isoforest_tpu/ops/pallas_traversal.py:331",
          "launches": launches["ext_dense_mean"], "max_abs_err": dense_err, "ms": times["dense_ms"],
          "plain_ms": times["dense_plain_ms"], "bound_ms": dense_bound, "bound_by": dense_by,
          "matmul_ms": times["dense_matmul_ms"],
@@ -503,8 +553,13 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     report = _build.build(ptxas_verbose=True)
-    ptxas = [line.strip() for r in report.values() for line in r["log"].splitlines()
-             if "Used" in line or ("spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line)]
+    ptxas, entry = [], ""
+    for r in report.values():
+        for line in r["log"].splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1][:90]
+            elif "Used" in line or ("spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line):
+                ptxas.append(f"{entry}: {line.strip()}")
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "per_source_s": {k: v["seconds"] for k, v in report.items()}, "ptxas": ptxas})
 
@@ -664,11 +719,11 @@ def main() -> int:
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/walk.cu",
-         "replaces": "isoforest_tpu/ops/pallas_walk.py:311", "launches": launches["walk"],
+         "replaces": "isoforest_tpu/ops/pallas_walk.py:312", "launches": launches["walk"],
          "max_abs_err": walk_err, "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
          "bound_ms": walk_bound, "bound_by": walk_by, "library_ms": None},
         {"name": "dense_mean", "route": "cuda", "source": "isoforest_tpu_torch/csrc/dense.cu",
-         "replaces": "isoforest_tpu/ops/pallas_traversal.py:277", "launches": launches["dense"],
+         "replaces": "isoforest_tpu/ops/pallas_traversal.py:278", "launches": launches["dense"],
          "max_abs_err": dense_err, "ms": times["dense_ms"], "plain_ms": times["dense_plain_ms"],
          "bound_ms": dense_bound, "bound_by": dense_by, "library_ms": None},
         *ext_kernels,

@@ -3,11 +3,18 @@
 ``_extended_pallas_sparse`` (k <= 32) and ``_extended_pallas_dense``.
 
 Host-side table builders, the wrappers of the two CUDA kernels
-(``csrc/ext_dense.cu`` for sparse tables, ``csrc/ext_gemm.cu`` for the
-dense table), their plain PyTorch versions and launch counters. Both
-kernels evaluate every internal slot's hyperplane test, follow each row's
-go-right bits to its exit leaf and accumulate ``pl / T`` tree by tree, as
-the Pallas kernels' source does (``pallas_traversal.py:239``).
+(``ext_sparse_mean`` of ``csrc/ext_walk.cu`` on the sparse hyperplanes'
+path records, ``csrc/ext_gemm.cu`` on the dense table) and their plain
+PyTorch versions. Both reference plain versions (:func:`ext_sparse_mean_plain`
+on the heap tables of :func:`sparse_hyperplane_tables`, which only it
+reads, and :func:`ext_dense_mean_plain`) evaluate every internal slot's
+hyperplane test, follow each row's go-right bits to its exit leaf and
+accumulate ``pl / T`` tree by tree, as the Pallas kernels' source does
+(``pallas_traversal.py:239``). The sparse kernel evaluates only the slots
+on each row's path, from the compact records of :mod:`.ext_path` (built by
+:func:`sparse_path_records`), with the same dots: only the bits on the path
+are read, so the result is the same bit for bit, and the kernel is held to
+the every-slot plain version on the card.
 
 Each dot is ``acc = fma(x[f], w, acc)`` from 0 over the node's coordinates
 in ascending feature order, duplicates merged as ``np.add.at`` merges them:
@@ -33,7 +40,7 @@ import numpy as np
 import torch
 
 from ..utils.math import fma_f32, height_of
-from . import _build
+from . import _build, ext_path
 from .dense import DENSE_MAX_HEIGHT
 from .ext_growth import ExtendedForest
 from .scoring_layout import pack_extended
@@ -44,7 +51,6 @@ SPARSE_K_MAX = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SPARSE_SIGNATURES = {"ext_sparse_mean": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P)}
 _DENSE_SIGNATURES = {"ext_dense_mean": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P)}
 
 # Bits of the dense table's ``kind`` (csrc/ext_gemm.cu): an internal node;
@@ -54,14 +60,15 @@ KIND_INTERNAL, KIND_UNUSED, KIND_ABSENT = 1, 2, 4
 
 
 class SparseHyperplaneTables(NamedTuple):
-    """``value`` f32 [T, M]: offset at internal slots, ``depth + c(n)`` at
-    leaves, 0 at holes; ``kind`` i32 [T, M]: 1 at internal slots, else 0;
-    ``index`` i32 / ``weight`` f32 [T, 2^h - 1, k]: each internal node's
-    coordinates ascending, duplicates merged, then ``(0, 0.0)`` for each
-    unused one (the gather walk's ``x[0] * 0``), then ``(-1, 0.0)`` for
-    each coordinate a merge removed, where the node's terms end;
-    ``min_features``, ``1 +
-    max(index)``: the narrowest row the kernel reads."""
+    """The sparse hyperplanes in heap order, read by the every-slot plain
+    version alone: ``value`` f32 [T, M]: offset at internal slots,
+    ``depth + c(n)`` at leaves, 0 at holes; ``kind`` i32 [T, M]: 1 at
+    internal slots, else 0; ``index`` i32 / ``weight`` f32 [T, 2^h - 1, k]:
+    each internal node's coordinates ascending, duplicates merged, then
+    ``(0, 0.0)`` for each unused one (the gather walk's ``x[0] * 0``), then
+    ``(-1, 0.0)`` for each coordinate a merge removed, where the node's
+    terms end; ``min_features``, ``1 + max(index)``: the narrowest row the
+    tables read."""
 
     value: torch.Tensor
     kind: torch.Tensor
@@ -98,10 +105,10 @@ def _common(forest: ExtendedForest):
     return value, kind, indices, weights
 
 
-def sparse_hyperplane_tables(forest: ExtendedForest) -> SparseHyperplaneTables:
-    """The sparse kernel's tables (``sparse_hyperplane_tables`` and
-    ``extended_common_tables``, ``pallas_traversal.py:397-427``, in heap
-    order), built on the CPU and moved to the forest's device."""
+def _sparse_heap(forest: ExtendedForest):
+    """CPU ``(value, kind, index, weight, terms)`` of the sparse hyperplanes
+    in heap order (:class:`SparseHyperplaneTables`); ``terms`` i32 [T,
+    2^h - 1]: each node's terms, those before its first -1."""
     value, kind, indices, weights = _common(forest)
     t_n, m_int, k = indices.shape
     absent = np.iinfo(np.int64).max
@@ -123,16 +130,41 @@ def sparse_hyperplane_tables(forest: ExtendedForest) -> SparseHyperplaneTables:
     w = np.take_along_axis(w, order, axis=2)
     used = key != absent
     # used coordinates come first; then one x[0] * 0 per unused coordinate
-    unused_end = used.sum(axis=2) + (indices < 0).sum(axis=2)
-    index = np.where(used, key, np.where(np.arange(k) < unused_end[..., None], 0, -1)).astype(np.int32)
+    terms = used.sum(axis=2) + (indices < 0).sum(axis=2)
+    index = np.where(used, key, np.where(np.arange(k) < terms[..., None], 0, -1)).astype(np.int32)
+    weight = np.where(used, w, np.float32(0)).astype(np.float32)
+    return value, kind, index, weight, terms.astype(np.int32)
+
+
+def sparse_hyperplane_tables(forest: ExtendedForest) -> SparseHyperplaneTables:
+    """The every-slot plain version's heap tables (``sparse_hyperplane_tables``
+    and ``extended_common_tables``, ``pallas_traversal.py:397-427``, in heap
+    order), built on the CPU and moved to the forest's device."""
+    value, kind, index, weight, _ = _sparse_heap(forest)
     dev = forest.device
     return SparseHyperplaneTables(
         value=value.contiguous().to(dev),
         kind=torch.from_numpy(kind).to(dev),
         index=torch.from_numpy(index).to(dev),
-        weight=torch.from_numpy(np.where(used, w, np.float32(0)).astype(np.float32)).to(dev),
+        weight=torch.from_numpy(weight).to(dev),
         min_features=int(index.max(initial=0)) + 1,
     )
+
+
+def sparse_path_records(forest: ExtendedForest) -> ext_path.PathRecords:
+    """The sparse kernel's table: the same hyperplanes as
+    :func:`sparse_hyperplane_tables`, one record per internal node with its
+    terms, built on the CPU and moved to the forest's device."""
+    value, kind, index, weight, terms = _sparse_heap(forest)
+    t_n, m_int, k = index.shape
+    heap_index = np.zeros(value.shape + (k,), np.int32)
+    heap_index[:, :m_int] = index
+    heap_weight = np.zeros(value.shape + (k,), np.float32)
+    heap_weight[:, :m_int] = weight
+    heap_terms = np.zeros(value.shape, np.int32)
+    heap_terms[:, :m_int] = terms
+    return ext_path.build_path_records(kind == 1, value.numpy(), value.numpy(), heap_index, heap_weight, heap_terms,
+                                       height_of(value.shape[1]), forest.device)
 
 
 def dense_hyperplane_table(forest: ExtendedForest) -> DenseHyperplaneTables:
@@ -222,34 +254,22 @@ def ext_dense_mean_plain(X: torch.Tensor, tables: DenseHyperplaneTables) -> torc
                       tables.value, tables.kind)
 
 
-def ext_sparse_mean(X: torch.Tensor, tables: SparseHyperplaneTables) -> torch.Tensor:
-    """Mean path length over trees from sparse hyperplanes, ``f32[N]``.
+def ext_sparse_mean(X: torch.Tensor, records: ext_path.PathRecords) -> torch.Tensor:
+    """Mean path length over trees from the sparse hyperplanes' records
+    (:func:`sparse_path_records`), ``f32[N]``.
 
     On a CUDA tensor this launches ``ext_sparse_mean`` of
-    ``csrc/ext_dense.cu`` and counts the launch in
-    ``ext_sparse_mean.launches``; on a CPU tensor it runs
-    :func:`ext_sparse_mean_plain`.
+    ``csrc/ext_walk.cu`` through :func:`.ext_path.launch`, which counts it
+    in ``ext_path.launches["ext_sparse_mean"]``; on a CPU tensor it runs
+    the same walk over the records in plain PyTorch
+    (:func:`.ext_path.path_sum_plain`), which the tests hold bit for bit
+    to :func:`ext_sparse_mean_plain`.
     """
-    t_count, m = tables.value.shape
-    _check_inputs(X, tables, (t_count, (m + 1) // 2 - 1, tables.index.shape[2]), tables.min_features)
+    ext_path.check_records(X, records, "ext_sparse_mean")
+    _check_height(records.height)
     if X.device.type == "cpu":
-        return ext_sparse_mean_plain(X, tables)
-    n, f = X.shape
-    out = torch.empty(n, dtype=torch.float32, device=X.device)
-    if n == 0:
-        return out
-    lib = _build.load("ext_dense", _SPARSE_SIGNATURES)
-    err = lib.ext_sparse_mean(
-        X.data_ptr(), n, f, tables.value.data_ptr(), tables.kind.data_ptr(),
-        tables.index.data_ptr(), tables.weight.data_ptr(), tables.index.shape[2],
-        t_count, height_of(m), out.data_ptr(), torch.cuda.current_stream(X.device).cuda_stream,
-    )
-    _build.check(err, "ext_sparse_mean")
-    ext_sparse_mean.launches += 1
-    return out
-
-
-ext_sparse_mean.launches = 0
+        return ext_path.path_sum_plain(X, records, paired=False, mean=True)
+    return ext_path.launch("ext_sparse_mean", X, records)
 
 
 def ext_dense_mean(X: torch.Tensor, tables: DenseHyperplaneTables) -> torch.Tensor:
@@ -264,6 +284,7 @@ def ext_dense_mean(X: torch.Tensor, tables: DenseHyperplaneTables) -> torch.Tens
     width = tables.weight.shape[1] if tables.weight.dim() == 3 else 0
     m_int = (m + 1) // 2 - 1
     _check_inputs(X, tables, (t_count, width, (m_int + 3) // 4 * 4), width)
+    _check_height(height_of(m))
     if X.device.type == "cpu":
         return ext_dense_mean_plain(X, tables)
     n, f = X.shape
@@ -284,9 +305,8 @@ def ext_dense_mean(X: torch.Tensor, tables: DenseHyperplaneTables) -> torch.Tens
 ext_dense_mean.launches = 0
 
 
-def _check_inputs(X: torch.Tensor, tables, node_shape, min_features: int) -> None:
-    """``node_shape``: the shape of the per-node tables (``index``,
-    ``weight``); ``value`` and ``kind`` take ``[T, M]``."""
+def _check_inputs(X: torch.Tensor, tables: DenseHyperplaneTables, weight_shape, min_features: int) -> None:
+    """``value`` and ``kind`` take ``[T, M]``, ``weight`` ``weight_shape``."""
     if X.dtype != torch.float32 or X.dim() != 2 or not X.is_contiguous():
         raise ValueError(f"X must be a contiguous float32 [N, F] tensor, got {X.dtype} {tuple(X.shape)}")
     if X.shape[1] < 1:
@@ -294,35 +314,39 @@ def _check_inputs(X: torch.Tensor, tables, node_shape, min_features: int) -> Non
     if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the EIF dense kernels run on 'cuda' or 'cpu' tensors, got {X.device}")
     plane = tables.value.shape
-    h = height_of(plane[1])
-    dtypes = {"value": torch.float32, "kind": torch.int32, "index": torch.int32, "weight": torch.float32}
-    for name in (f for f in tables._fields if f in dtypes):
-        a, shape = getattr(tables, name), plane if name in ("value", "kind") else tuple(node_shape)
-        if a.device != X.device or a.dtype != dtypes[name] or a.shape != shape or not a.is_contiguous():
+    for name, dtype, shape in (("value", torch.float32, plane), ("kind", torch.int32, plane),
+                               ("weight", torch.float32, tuple(weight_shape))):
+        a = getattr(tables, name)
+        if a.device != X.device or a.dtype != dtype or a.shape != shape or not a.is_contiguous():
             raise ValueError(
-                f"EIF dense table {name!r} must be a contiguous {dtypes[name]} {tuple(shape)} tensor "
+                f"EIF dense table {name!r} must be a contiguous {dtype} {tuple(shape)} tensor "
                 f"on {X.device}, got {a.dtype} {tuple(a.shape)} on {a.device}"
             )
     if X.shape[1] < min_features:
         raise ValueError(f"X has {X.shape[1]} features, but the hyperplane tables span {min_features}")
-    if h > DENSE_MAX_HEIGHT:
-        raise ValueError(
-            f"the dense kernels support trees of height <= DENSE_MAX_HEIGHT="
-            f"{DENSE_MAX_HEIGHT} (their go-right bits live in at most 32 words "
-            f"a row); this forest has height {h}: use strategy='walk'"
-        )
     if X.shape[0] >= 2**31:
         raise ValueError("the dense kernels take fewer than 2^31 rows")
 
 
+def _check_height(h: int) -> None:
+    """``strategy="dense"`` serves trees up to ``DENSE_MAX_HEIGHT``, with
+    either kernel, so it takes the same forests whatever their k."""
+    if h > DENSE_MAX_HEIGHT:
+        raise ValueError(
+            f"the dense kernels support trees of height <= DENSE_MAX_HEIGHT="
+            f"{DENSE_MAX_HEIGHT} (the dense-table kernel keeps a row's go-right "
+            f"bits in at most 32 words); this forest has height {h}: use strategy='walk'"
+        )
+
+
 def hyperplane_tables(forest: ExtendedForest):
-    """The tables of the kernel that serves ``forest``: sparse for
-    ``k <= SPARSE_K_MAX``, dense above."""
-    return sparse_hyperplane_tables(forest) if forest.k <= SPARSE_K_MAX else dense_hyperplane_table(forest)
+    """The tables of the kernel that serves ``forest``: the sparse
+    hyperplanes' records for ``k <= SPARSE_K_MAX``, the dense table above."""
+    return sparse_path_records(forest) if forest.k <= SPARSE_K_MAX else dense_hyperplane_table(forest)
 
 
 def path_lengths_ext_dense(X: torch.Tensor, tables) -> torch.Tensor:
     """Mean path lengths through the kernel the tables belong to."""
-    if isinstance(tables, SparseHyperplaneTables):
+    if isinstance(tables, ext_path.PathRecords):
         return ext_sparse_mean(X, tables)
     return ext_dense_mean(X, tables)

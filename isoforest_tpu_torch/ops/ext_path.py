@@ -1,0 +1,234 @@
+"""Compact per-node hyperplane records and the path-walk core shared by the
+two EIF path kernels of ``csrc/ext_walk.cu``: the walk ``ext_walk_sum``
+(:mod:`.ext_walk`) and the sparse-hyperplane level walk ``ext_sparse_mean``
+(:mod:`.ext_dense`).
+
+A record per internal node, in 16-byte chunks of int32 words: a header
+``(offset bits, left code, right code, terms)``, then the node's terms in
+chunks: three to a chunk ``(w0, w1, w2, i0 | i1 << 10 | i2 << 20)`` where
+every feature index fits 10 bits (F <= 1024), else two ``(w0, w1, i0,
+i1)``. Records of a tree are its internal heap slots in ascending order
+(the top levels together), trees one after the other. A child code ``< 0`` is ``~record``
+of an internal node; ``>= 0`` is the float32 bits of a leaf's path length
+(``depth + c(numInstances)``, 0 at a hole), so a leaf costs the kernel no
+load. ``roots[t]`` is tree t's root code.
+
+The two kernels differ in the dot order (:func:`hyperplane_dot`) and the
+sum order (a sum over trees, or ``acc += pl / T``). :func:`path_sum_plain`
+walks the same records in plain PyTorch; :func:`launch` is the one place
+either kernel is launched, and counts it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Iterator, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..utils.math import fma_f32
+from . import _build
+
+# The reference walk kernel's k fence (pallas_walk.py:84). The port's walk
+# takes any k; the fence only switches the walk's dot order.
+PAIRED_MAX_K = 16
+
+# Batches of at most this many rows take the small-batch kernel (one warp a
+# row, lanes over trees); larger ones one thread a row. Measured on the H100
+# by tools/torch_port_kernel_paths.py (PERF.md).
+TREE_PARALLEL_MAX_ROWS = 1 << 16
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+SIGNATURES = {name: (_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P) for name in ("ext_walk_sum", "ext_sparse_mean")}
+
+# The widest row whose feature indices fit a record's 10-bit fields.
+PACKED_MAX_FEATURES = 1 << 10
+
+
+class PathRecords(NamedTuple):
+    """``records`` int32 [R, 4 * (1 + ceil(k / chunk_terms))] and ``roots``
+    int32 [T] (module docstring); ``k``, the most terms a record holds;
+    ``chunk_terms``, 3 (10-bit indices) or 2 (i32 indices); ``height``, the
+    trees' heap height; ``min_features``, ``1 + max(index)``: the narrowest
+    row the kernel reads."""
+
+    records: torch.Tensor
+    roots: torch.Tensor
+    k: int
+    chunk_terms: int
+    height: int
+    min_features: int
+
+    @property
+    def num_trees(self) -> int:
+        return self.roots.shape[0]
+
+
+def pack_records(offset, left, right, terms, index, weight, chunk_terms: int) -> np.ndarray:
+    """The record words of per-record numpy fields: ``offset`` f32,
+    ``left``/``right``/``terms`` i32 ``[R]``, ``index`` i32 and ``weight``
+    f32 ``[R, k]`` (0 past each record's terms), ``int32 [R, W]``."""
+    r, k = index.shape
+    chunks = -(-k // chunk_terms)
+    body = np.zeros((r, chunks, 4), np.int32)
+    w = np.zeros((r, chunks * chunk_terms), np.float32)
+    w[:, :k] = weight
+    ix = np.zeros((r, chunks * chunk_terms), np.int64)
+    ix[:, :k] = index
+    w, ix = w.reshape(r, chunks, chunk_terms), ix.reshape(r, chunks, chunk_terms)
+    body[..., :chunk_terms] = w.view(np.int32)
+    if chunk_terms == 3:
+        body[..., 3] = ix[..., 0] | ix[..., 1] << 10 | ix[..., 2] << 20
+    else:
+        body[..., 2:] = ix
+    head = np.stack([np.asarray(offset, np.float32).view(np.int32), left, right, terms], axis=1).astype(np.int32)
+    return np.concatenate([head, body.reshape(r, 4 * chunks)], axis=1)
+
+
+def build_path_records(internal, offset, leaf, index, weight, terms, height: int, device) -> PathRecords:
+    """Records from heap-order numpy arrays: ``internal`` bool, ``offset``
+    and ``leaf`` (the path length at a non-internal slot) f32 ``[T, M]``;
+    ``index`` i32 and ``weight`` f32 ``[T, M, k]``, each node's terms first;
+    ``terms`` i32 ``[T, M]``. Built on the CPU, moved to ``device``."""
+    t_n, m, k = index.shape
+    internal = np.array(internal, bool)
+    internal[:, (m + 1) // 2 - 1 :] = False  # the bottom level holds only leaves
+    leaf = np.where(internal, np.float32(0), np.asarray(leaf, np.float32))
+    if not (leaf >= 0).all():
+        raise ValueError("leaf path lengths must be >= 0")
+    leaf = leaf + np.float32(0)  # -0.0 -> +0.0: adds the same to either sum
+    rid = (np.cumsum(internal.ravel()) - 1).reshape(t_n, m)
+    code = np.where(internal, ~rid, leaf.view(np.int32)).astype(np.int32)
+    tt, ss = np.nonzero(internal)  # tree-major, slots ascending: record order
+    terms = np.asarray(terms, np.int32)[tt, ss]
+    live = np.arange(k) < terms[:, None]
+    used = np.where(live, np.asarray(index)[tt, ss], 0)
+    min_features = int(used.max(initial=0)) + 1
+    chunk_terms = 3 if min_features <= PACKED_MAX_FEATURES else 2
+    rec = pack_records(np.asarray(offset, np.float32)[tt, ss], code[tt, 2 * ss + 1], code[tt, 2 * ss + 2], terms,
+                       used, np.where(live, np.asarray(weight, np.float32)[tt, ss], np.float32(0)), chunk_terms)
+    return PathRecords(
+        records=torch.from_numpy(rec).to(device),
+        roots=torch.from_numpy(np.ascontiguousarray(code[:, 0])).to(device),
+        k=k,
+        chunk_terms=chunk_terms,
+        height=height,
+        min_features=min_features,
+    )
+
+
+def record_fields(p: PathRecords):
+    """``(offset, left, right, terms, index, weight)`` of every record,
+    decoded from the words the kernel reads."""
+    rec = p.records
+    r, chunks = rec.shape[0], rec.shape[1] // 4 - 1
+    body = rec[:, 4:].reshape(r, chunks, 4)
+    weight = body[..., : p.chunk_terms].reshape(r, chunks * p.chunk_terms)[:, : p.k].contiguous().view(torch.float32)
+    if p.chunk_terms == 3:
+        packed = body[..., 3:].long()
+        index = torch.cat([packed & 0x3FF, packed >> 10 & 0x3FF, packed >> 20 & 0x3FF], dim=2)
+    else:
+        index = body[..., 2:].long()
+    index = index.reshape(r, chunks * p.chunk_terms)[:, : p.k]
+    return rec[:, 0].contiguous().view(torch.float32), rec[:, 1], rec[:, 2], rec[:, 3], index, weight
+
+
+def hyperplane_dot(X: torch.Tensor, index: torch.Tensor, weight: torch.Tensor,
+                   terms: Optional[torch.Tensor] = None, paired: Optional[bool] = None) -> torch.Tensor:
+    """Each row's dot with its node's hyperplane, step by step as the
+    kernel rounds it. ``index``/``weight``: ``[N, k]``, the terms of each
+    row's node; ``terms``: ``[N]``, how many of them count (all k when
+    None). ``paired`` (default: ``1 < k <= PAIRED_MAX_K``): ``x1*w1``, then
+    ``fma(x0, w0, .)``, then the chain from q = 2, the walk kernel's order;
+    else the chain ``fma(xq, wq, .)`` from 0."""
+    k = index.shape[1]
+    if paired is None:
+        paired = 1 < k <= PAIRED_MAX_K
+    xv = X.gather(1, index.long())
+    if paired:
+        dot = xv[:, 1] * weight[:, 1]
+        dot = fma_f32(xv[:, 0], weight[:, 0], dot)
+        first = 2
+    else:
+        dot = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
+        first = 0
+    for q in range(first, k):
+        step = fma_f32(xv[:, q], weight[:, q], dot)
+        dot = step if terms is None else torch.where(q < terms, step, dot)
+    return dot
+
+
+def tree_path_lengths(X: torch.Tensor, p: PathRecords, paired: bool) -> Iterator[torch.Tensor]:
+    """Each tree's path length of every row, ``f32[N]``, tree by tree: the
+    walk over the records in plain PyTorch."""
+    offset, left, right, terms, index, weight = record_fields(p)
+    n = X.shape[0]
+    for t in range(p.num_trees):
+        code = p.roots[t].long().expand(n)
+        for _ in range(p.height if p.records.shape[0] else 0):
+            walking = code < 0
+            node = torch.where(walking, ~code, 0)
+            dot = hyperplane_dot(X, index[node], weight[node], terms[node], paired)
+            code = torch.where(walking, torch.where(dot >= offset[node], right[node], left[node]).long(), code)
+        yield code.to(torch.int32).view(torch.float32)
+
+
+def path_sum_plain(X: torch.Tensor, p: PathRecords, paired: bool, mean: bool) -> torch.Tensor:
+    """Both kernels' function in plain PyTorch, ``f32[N]``: per tree in tree
+    order ``acc += pl`` (``mean``: ``acc += pl / T``, a true division by a
+    device tensor), each dot in the ``paired`` order or the chain from 0."""
+    acc = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
+    t_real = torch.tensor(float(p.num_trees), dtype=torch.float32, device=X.device)
+    for pl in tree_path_lengths(X, p, paired):
+        acc = acc + (pl / t_real if mean else pl)
+    return acc
+
+
+def check_records(X: torch.Tensor, p: PathRecords, what: str) -> None:
+    """Raise unless ``p`` suits ``X`` and the kernel."""
+    if X.dtype != torch.float32 or X.dim() != 2 or not X.is_contiguous():
+        raise ValueError(f"X must be a contiguous float32 [N, F] tensor, got {X.dtype} {tuple(X.shape)}")
+    if X.shape[1] < 1:
+        raise ValueError("X needs at least one feature column")
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on 'cuda' or 'cpu' tensors, got {X.device}")
+    for name, a, dim in (("records", p.records, 2), ("roots", p.roots, 1)):
+        if a.device != X.device or a.dtype != torch.int32 or a.dim() != dim or not a.is_contiguous():
+            raise ValueError(f"{what} table {name!r} must be a contiguous int32 {dim}-D tensor on {X.device}, "
+                             f"got {a.dtype} {tuple(a.shape)} on {a.device}")
+    if p.chunk_terms not in (2, 3) or p.records.shape[1] != 4 * (1 - (-p.k // p.chunk_terms)):
+        raise ValueError(f"{what} table 'records' has {p.records.shape[1]} words a record, not k = {p.k}'s")
+    if X.shape[1] < p.min_features:
+        raise ValueError(f"X has {X.shape[1]} features, but the {what} tables read feature {p.min_features - 1}")
+    if X.shape[0] >= 2**31 or p.records.shape[0] >= 2**31:
+        raise ValueError(f"{what} takes fewer than 2^31 rows and records")
+
+
+# Launches of each kernel of csrc/ext_walk.cu, counted where they happen.
+launches = {name: 0 for name in SIGNATURES}
+
+
+def launch(name: str, X: torch.Tensor, p: PathRecords, tree_parallel: Optional[bool] = None) -> torch.Tensor:
+    """Launch kernel ``name`` of ``csrc/ext_walk.cu`` on CUDA ``X``, ``f32[N]``,
+    and count it in ``launches[name]``. ``tree_parallel``: the small-batch
+    kernel (default: at most ``TREE_PARALLEL_MAX_ROWS`` rows); the wrappers
+    take the default, a caller that compares the two sides names one."""
+    n, f = X.shape
+    out = torch.empty(n, dtype=torch.float32, device=X.device)
+    if n == 0:
+        return out
+    if p.records.data_ptr() % 16:
+        raise ValueError("the record table must be 16-byte aligned")
+    if tree_parallel is None:
+        tree_parallel = n <= TREE_PARALLEL_MAX_ROWS
+    lib = _build.load("ext_walk", SIGNATURES)
+    err = getattr(lib, name)(
+        X.data_ptr(), n, f, p.records.data_ptr(), p.roots.data_ptr(),
+        p.num_trees, p.k, p.chunk_terms, int(tree_parallel), out.data_ptr(),
+        torch.cuda.current_stream(X.device).cuda_stream,
+    )
+    _build.check(err, name)
+    launches[name] += 1
+    return out

@@ -10,20 +10,20 @@ from isoforest_tpu_torch.ops import _build
 
 
 def test_every_kernel_source_is_listed_and_present():
-    assert set(_build.SOURCES) == {"walk", "dense", "ext_walk", "ext_dense", "ext_gemm"}
+    assert set(_build.SOURCES) == {"walk", "dense", "ext_walk", "ext_gemm"}
     for source in _build.SOURCES.values():
         assert (_build.CSRC_DIR / source).is_file()
 
 
 def test_flags_change_the_library_path(monkeypatch):
-    base = _build.library_path("ext_dense")
-    assert base == _build.library_path("ext_dense")
-    assert base.parent == _build.BUILD_DIR and base.name.startswith("libext_dense-")
+    base = _build.library_path("ext_gemm")
+    assert base == _build.library_path("ext_gemm")
+    assert base.parent == _build.BUILD_DIR and base.name.startswith("libext_gemm-")
     seen = {base}
     for extra in (("--fmad=false",), ("-lineinfo",)):
         monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + extra)
-        assert _build.library_path("ext_dense") not in seen
-        seen.add(_build.library_path("ext_dense"))
+        assert _build.library_path("ext_gemm") not in seen
+        seen.add(_build.library_path("ext_gemm"))
 
 
 def test_source_changes_the_library_path(monkeypatch, tmp_path):
@@ -66,6 +66,6 @@ def test_build_starts_every_nvcc_together_and_times_each(tmp_path, monkeypatch):
 
 def test_failed_nvcc_raises_with_its_log(tmp_path, monkeypatch):
     _fake_toolkit(tmp_path, monkeypatch, "print('error: no such intrinsic'); sys.exit(2)\n")
-    with pytest.raises(RuntimeError, match="nvcc failed for ext_dense.cu .exit 2.:\nerror: no such intrinsic"):
-        _build.build(["ext_dense"])
-    assert not _build.library_path("ext_dense").exists()
+    with pytest.raises(RuntimeError, match="nvcc failed for ext_gemm.cu .exit 2.:\nerror: no such intrinsic"):
+        _build.build(["ext_gemm"])
+    assert not _build.library_path("ext_gemm").exists()

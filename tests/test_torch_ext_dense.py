@@ -1,7 +1,7 @@
 """The PyTorch port's EIF dense level walks (``ops/ext_dense.py``, the plain
-versions of the two kernels of ``csrc/ext_dense.cu``) against the JAX
-package's ``_extended_pallas_sparse`` (k <= 32) and
-``_extended_pallas_dense`` (k > 32), both through
+versions of ``ext_sparse_mean`` of ``csrc/ext_walk.cu`` and of
+``csrc/ext_gemm.cu``) against the JAX package's ``_extended_pallas_sparse``
+(k <= 32) and ``_extended_pallas_dense`` (k > 32), both through
 ``pallas_traversal.path_lengths_pallas`` in interpret mode, on the CPU.
 
 XLA:CPU computes the reference's ``X @ W`` as an FMA chain over features
@@ -35,10 +35,11 @@ from isoforest_tpu.ops.ext_growth import ExtendedForest as JaxForest
 from isoforest_tpu.ops.pallas_traversal import _SPARSE_K_MAX, _concat_order
 from isoforest_tpu.ops.pallas_traversal import dense_hyperplane_table as jax_dense_table
 from isoforest_tpu.ops.pallas_traversal import path_lengths_pallas as jax_pallas
+from isoforest_tpu.ops.pallas_traversal import sparse_hyperplane_tables as jax_sparse_tables
 from isoforest_tpu.ops.traversal import extended_path_lengths as jax_gather
 from isoforest_tpu.utils.math import avg_path_length as jax_c
 from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
-from isoforest_tpu_torch.ops import ext_dense, ext_walk
+from isoforest_tpu_torch.ops import ext_dense, ext_path, ext_walk
 from isoforest_tpu_torch.ops.traversal import extended_path_lengths
 from isoforest_tpu_torch.testing import finite_rows, random_extended_forest, rows
 from isoforest_tpu_torch.utils.math import avg_path_length as port_c
@@ -73,6 +74,8 @@ def test_sparse_split_is_the_jax_packages():
         (1, 5, finite_rows),
         (6, 6, finite_rows),
         (6, 6, quantized_rows),
+        (16, 16, quantized_rows),
+        (17, 20, quantized_rows),
         (32, 36, finite_rows),
         (33, 40, finite_rows),
         (40, 40, quantized_rows),
@@ -84,11 +87,16 @@ def test_matches_jax_pallas_kernel_bitwise(k, features, make_rows):
     rng = np.random.default_rng(1000 + 10 * k + features)
     X = make_rows(rng, 1025, features)
     arrays = random_extended_forest(rng, 8, 4, features, k, sizes=sizes_with_equal_c(), intercepts=X[:32])
-    tables = ext_dense.hyperplane_tables(extended_forest_from_arrays(*arrays, device="cpu"))
-    expected = ext_dense.SparseHyperplaneTables if k <= 32 else ext_dense.DenseHyperplaneTables
+    forest = extended_forest_from_arrays(*arrays, device="cpu")
+    tables = ext_dense.hyperplane_tables(forest)
+    expected = ext_path.PathRecords if k <= 32 else ext_dense.DenseHyperplaneTables
     assert isinstance(tables, expected)
     got = ext_dense.path_lengths_ext_dense(torch.from_numpy(X), tables).numpy()
-    np.testing.assert_array_equal(got, np.asarray(jax_pallas(JaxForest(*arrays), X, interpret=True)))
+    want = np.asarray(jax_pallas(JaxForest(*arrays), X, interpret=True))
+    np.testing.assert_array_equal(got, want)
+    if k <= 32:  # the every-slot plain version, the kernel's reference on the card
+        every_slot = ext_dense.ext_sparse_mean_plain(torch.from_numpy(X), ext_dense.sparse_hyperplane_tables(forest))
+        np.testing.assert_array_equal(every_slot.numpy(), want)
 
 
 def test_fixture_slice_matches_jax_pallas_kernel(mammography):
@@ -227,15 +235,19 @@ def test_duplicate_coordinates_merge_like_the_reference():
     dense = ext_dense.dense_hyperplane_table(forest)
     np.testing.assert_array_equal(dense.weight[0, :, 0].numpy(), np.float32([0, -0.25, 0, 1.25]))
     assert dense.kind[0, 0] == ext_dense.KIND_INTERNAL | ext_dense.KIND_ABSENT  # coordinates 0 and 2
+    records = ext_dense.sparse_path_records(forest)
+    assert records.min_features == 4
     rng = np.random.default_rng(3)
     X = finite_rows(rng, 1024, 4)
     want = np.asarray(jax_pallas(JaxForest(*arrays), X, interpret=True))
     Xt = torch.from_numpy(X)
-    np.testing.assert_array_equal(ext_dense.ext_sparse_mean(Xt, sparse).numpy(), want)
+    np.testing.assert_array_equal(ext_dense.ext_sparse_mean(Xt, records).numpy(), want)
+    np.testing.assert_array_equal(ext_dense.ext_sparse_mean_plain(Xt, sparse).numpy(), want)
     np.testing.assert_array_equal(ext_dense.ext_dense_mean(Xt, dense).numpy(), want)
     X[: len(X) // 2, 0] = np.resize(np.float32([np.nan, np.inf, -np.inf]), len(X) // 2)
     Xt = torch.from_numpy(X)
-    got = ext_dense.ext_sparse_mean(Xt, sparse).numpy()
+    got = ext_dense.ext_sparse_mean(Xt, records).numpy()
+    np.testing.assert_array_equal(got, ext_dense.ext_sparse_mean_plain(Xt, sparse).numpy())
     np.testing.assert_array_equal(got, ext_dense.ext_dense_mean(Xt, dense).numpy())
     np.testing.assert_array_equal(got, want)  # x[0] is not a coordinate
     np.testing.assert_allclose(got, np.asarray(jax_gather(JaxForest(*arrays), X)), rtol=0, atol=1e-5)
@@ -259,7 +271,9 @@ def test_dense_table_marks_zero_weights_and_unused_coordinates():
     sparse = ext_dense.sparse_hyperplane_tables(forest)
     # used, then the unused coordinate's x[0] * 0, then the merged-away slot last
     np.testing.assert_array_equal(sparse.index[0, 0].numpy(), [1, 2, 0, -1])
-    np.testing.assert_array_equal(ext_dense.ext_sparse_mean(torch.from_numpy(X), sparse).numpy(), want)
+    np.testing.assert_array_equal(ext_dense.ext_sparse_mean_plain(torch.from_numpy(X), sparse).numpy(), want)
+    records = ext_dense.sparse_path_records(forest)
+    np.testing.assert_array_equal(ext_dense.ext_sparse_mean(torch.from_numpy(X), records).numpy(), want)
 
 
 def test_height_fence():
@@ -270,7 +284,7 @@ def test_height_fence():
     torch.testing.assert_close(got, extended_path_lengths(at_fence, X), rtol=0, atol=1e-5)
     above = extended_forest_from_arrays(*random_extended_forest(rng, 2, 11, 4, 2, 0.3), device="cpu")
     with pytest.raises(ValueError, match="DENSE_MAX_HEIGHT=10"):
-        ext_dense.ext_sparse_mean(X, ext_dense.sparse_hyperplane_tables(above))
+        ext_dense.ext_sparse_mean(X, ext_dense.sparse_path_records(above))
     with pytest.raises(ValueError, match="DENSE_MAX_HEIGHT=10"):
         ext_dense.ext_dense_mean(X, ext_dense.dense_hyperplane_table(above))
 
@@ -279,31 +293,118 @@ def test_plain_versions_on_cpu_count_no_launch():
     rng = np.random.default_rng(9)
     forest = extended_forest_from_arrays(*random_extended_forest(rng, 4, 4, 3, 2), device="cpu")
     X = torch.from_numpy(finite_rows(rng, 33, 3))
-    for wrapper, plain, build in (
-        (ext_dense.ext_sparse_mean, ext_dense.ext_sparse_mean_plain, ext_dense.sparse_hyperplane_tables),
-        (ext_dense.ext_dense_mean, ext_dense.ext_dense_mean_plain, ext_dense.dense_hyperplane_table),
-    ):
-        tables = build(forest)
-        before = wrapper.launches
-        got = wrapper(X, tables)
-        assert wrapper.launches == before
-        assert torch.equal(got, plain(X, tables))
+    before = dict(ext_path.launches)
+    got = ext_dense.ext_sparse_mean(X, ext_dense.sparse_path_records(forest))
+    assert ext_path.launches == before
+    assert torch.equal(got, ext_dense.ext_sparse_mean_plain(X, ext_dense.sparse_hyperplane_tables(forest)))
+    tables = ext_dense.dense_hyperplane_table(forest)
+    before = ext_dense.ext_dense_mean.launches
+    got = ext_dense.ext_dense_mean(X, tables)
+    assert ext_dense.ext_dense_mean.launches == before
+    assert torch.equal(got, ext_dense.ext_dense_mean_plain(X, tables))
 
 
 def test_wrappers_check_inputs():
     rng = np.random.default_rng(10)
     forest = extended_forest_from_arrays(*random_extended_forest(rng, 3, 3, 3, 2), device="cpu")
-    sparse = ext_dense.sparse_hyperplane_tables(forest)
+    sparse = ext_dense.sparse_path_records(forest)
     dense = ext_dense.dense_hyperplane_table(forest)
     with pytest.raises(ValueError, match="contiguous float32"):
         ext_dense.ext_sparse_mean(torch.zeros(4, 3).t(), sparse)
+    with pytest.raises(ValueError, match="ext_sparse_mean table 'records'"):
+        ext_dense.ext_sparse_mean(torch.zeros(4, 3), sparse._replace(records=sparse.records.long()))
+    with pytest.raises(ValueError, match="ext_sparse_mean table 'records' has 4 words a record"):
+        ext_dense.ext_sparse_mean(torch.zeros(4, 3), sparse._replace(records=sparse.records[:, :4].contiguous()))
     with pytest.raises(ValueError, match="EIF dense table 'value'"):
-        ext_dense.ext_sparse_mean(torch.zeros(4, 3), sparse._replace(value=sparse.value.double()))
-    with pytest.raises(ValueError, match="EIF dense table 'index'"):
-        ext_dense.ext_sparse_mean(torch.zeros(4, 3), sparse._replace(index=sparse.index[:, :1].contiguous()))
+        ext_dense.ext_dense_mean(torch.zeros(4, 3), dense._replace(value=dense.value.double()))
     with pytest.raises(ValueError, match="X has 2 features, but the hyperplane tables span 3"):
         ext_dense.ext_dense_mean(torch.zeros(4, 2), dense)
-    with pytest.raises(ValueError, match=f"X has 1 features, but the hyperplane tables span {sparse.min_features}"):
+    with pytest.raises(ValueError, match=f"X has 1 features, but the ext_sparse_mean tables read feature "
+                                         f"{sparse.min_features - 1}"):
         ext_dense.ext_sparse_mean(torch.zeros(4, 1), sparse)
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         ext_dense.ext_dense_mean(torch.zeros(4, 3, device="meta"), type(dense)(*(t.to("meta") for t in dense)))
+
+
+@pytest.mark.parametrize("k,height", [(6, 0), (6, 1), (3, 2)])
+def test_low_trees_match_jax_pallas_kernel_bitwise(k, height):
+    """Heights 0 to 2, root-leaf trees among them (tree 0), on tie-heavy
+    rows: the plain version against the Pallas kernel bit for bit."""
+    rng = np.random.default_rng(1500 + 10 * k + height)
+    X = quantized_rows(rng, 300, 6)
+    arrays = random_extended_forest(rng, 8, height, 6, k, sizes=sizes_with_equal_c(), intercepts=X[:32])
+    got = _port_dense(arrays, X)
+    np.testing.assert_array_equal(got, np.asarray(jax_pallas(JaxForest(*arrays), X, interpret=True)))
+
+
+@pytest.mark.parametrize(
+    "k,features,height,data",
+    [
+        (6, 6, 8, "ties"),
+        (6, 7, 5, "nonfinite"),
+        (16, 16, 4, "ties"),
+        (17, 17, 4, "nonfinite"),
+        (32, 40, 3, "ties"),
+        (6, 6, 0, "nonfinite"),
+        (1, 300, 6, "nonfinite"),
+    ],
+)
+def test_path_only_walk_equals_every_slot_walk_bitwise(k, features, height, data):
+    """Evaluating only the slots on a row's path (the sparse kernel) gives
+    the every-slot plain version's mean bit for bit: ties, NaN and +-inf
+    rows, the k = 16/17 widths, h = 0, root-leaf trees, u16 indices."""
+    rng = np.random.default_rng(6000 + 10 * k + height)
+    X = quantized_rows(rng, 700, features) if data == "ties" else rows(rng, 700, features)
+    arrays = random_extended_forest(rng, 9, height, features, k, intercepts=X[:32], unused_p=0.3)
+    forest = extended_forest_from_arrays(*arrays, device="cpu")
+    Xt = torch.from_numpy(X)
+    path_only = ext_dense.ext_sparse_mean(Xt, ext_dense.sparse_path_records(forest))
+    assert torch.equal(path_only, ext_dense.ext_sparse_mean_plain(Xt, ext_dense.sparse_hyperplane_tables(forest)))
+
+
+def test_path_only_walk_skips_merged_coordinates():
+    """A merge leaves fewer terms in the record: the path-only walk stops
+    where the every-slot walk meets -1, on rows whose x[0] is not finite."""
+    eq = sizes_with_equal_c()
+    arrays = _one_node_forest([3, 1, 3], [0.5, -0.25, 0.75], 0.0, 3, sizes=(eq[2], eq[40]))
+    forest = extended_forest_from_arrays(*arrays, device="cpu")
+    records = ext_dense.sparse_path_records(forest)
+    offset, left, right, terms, index, weight = ext_path.record_fields(records)
+    assert terms.tolist() == [2] and index[0, :2].tolist() == [1, 3]
+    X = finite_rows(np.random.default_rng(5), 256, 4)
+    X[::2, 0] = np.resize(np.float32([np.nan, np.inf, -np.inf]), 128)
+    Xt = torch.from_numpy(X)
+    every_slot = ext_dense.ext_sparse_mean_plain(Xt, ext_dense.sparse_hyperplane_tables(forest))
+    assert torch.equal(ext_dense.ext_sparse_mean(Xt, records), every_slot)
+
+
+@pytest.mark.parametrize("k,features,unused_p", [(6, 6, 0.3), (32, 40, 0.0), (12, 1000, 0.5)])
+def test_sparse_records_hold_the_jax_sparse_tables(k, features, unused_p):
+    """The sparse kernel's records hold the JAX package's
+    ``sparse_hyperplane_tables`` (``[T, k, M_pad]``, level-concat order)
+    packed: at every internal node the record's terms give each coordinate
+    its merged weight (duplicates added as ``np.add.at`` adds them) and one
+    ``x[0] * 0`` term per unused coordinate, in ascending order."""
+    rng = np.random.default_rng(7000 + k)
+    arrays = random_extended_forest(rng, 3, 4, features, k, unused_p=unused_p)
+    arrays[0][1, 0, :2] = arrays[0][1, 0, 1]  # one duplicate coordinate
+    jf = JaxForest(*arrays)
+    m = arrays[0].shape[1]
+    idx, w = (np.asarray(a) for a in jax_sparse_tables(jf, 128))
+    position = np.argsort(np.asarray(_concat_order(m)))  # table slot of each heap slot
+    idx, w = idx[:, :, position].transpose(0, 2, 1), w[:, :, position].transpose(0, 2, 1)
+    records = ext_dense.sparse_path_records(extended_forest_from_arrays(*arrays, device="cpu"))
+    _, _, _, terms, index, weight = (a.numpy() for a in ext_path.record_fields(records))
+    tt, ss = np.nonzero(arrays[0][..., 0] >= 0)
+    assert len(terms) == len(tt) and records.chunk_terms == 3
+    for r, (t, slot) in enumerate(zip(tt, ss)):
+        coords = idx[t, slot]
+        want = np.zeros(features, np.float32)
+        np.add.at(want, coords[coords >= 0], w[t, slot][coords >= 0])
+        n_used = len(np.unique(coords[coords >= 0]))
+        assert terms[r] == n_used + (coords < 0).sum()
+        got = np.zeros(features, np.float32)
+        got[index[r, :n_used]] = weight[r, :n_used]
+        np.testing.assert_array_equal(got, want)
+        assert (np.diff(index[r, :n_used]) > 0).all()
+        assert not index[r, n_used : terms[r]].any() and not weight[r, n_used : terms[r]].any()

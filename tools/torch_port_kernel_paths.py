@@ -11,40 +11,43 @@ CUDA toolkit::
 ``--extract-old REV`` writes the package and ``chip_smoke.py`` as they
 were at git revision ``REV`` to ``build/kernel_paths/old/`` and exits; the
 copy travels with the checkout to a machine without git. The second
-command then builds the dense kernels of that tree (``csrc/dense.cu``, and
-``csrc/ext_dense.cu``, which then held the dense-table kernel too) beside
-the committed ones and times each earlier design against the committed
-one in turns (old, new, new, old) at the shapes of the main path of
-``chip_smoke.py``: the
-standard dense kernel on the mammography model (100 trees, height 8,
-F = 6) and 1,000,000 rows, the dense-table kernel on a seeded F = k = 274
-forest and 65,536 rows (its earlier node-major table and kind codes
-rebuilt from the committed table). Each pair must agree bit for bit. It
-also measures ``chip_smoke.py``'s serving latency (``model.score`` of 1,
-64 and 4,096 rows, ``auto`` and ``dense``, both fixture models) of the
-old tree and of this one, six runs each, in turns that alternate which
-runs first, each in a process of its own.
+command then builds the EIF path kernels of that tree (``csrc/ext_walk.cu``
+with the walk over heap tables, and ``csrc/ext_dense.cu``, which then held
+the sparse-hyperplane level walk that evaluated every slot) beside the
+committed ones and times each earlier design against the committed one in
+turns (old, new, new, old) at the shapes of the main path of
+``chip_smoke.py``: the mammography EIF (100 trees, height 8, k = 6) and
+1,000,000 rows, the earlier designs' heap tables rebuilt from the forest.
+Each pair must agree bit for bit. It also measures ``chip_smoke.py``'s
+serving latency (``model.score`` of 1, 64 and 4,096 rows, ``auto`` and
+``dense``, both fixture models) of the old tree and of this one, six runs
+each, in turns that alternate which runs first, each in a process of its
+own.
 
 Each variant is a textual edit of a copy of a kernel source, built under
-``build/``, that takes another data path or another size: the walk
-(``csrc/ext_walk.cu``) reading its rows and tables through the read-only
-path (``__ldg``) instead of plain loads; the sparse kernel
-(``csrc/ext_dense.cu``) reading x[f] through L1 instead of the block's
-shared-memory tile, and testing every coordinate for the merged-away marker
--1 instead of ending the node's terms at the first one; the standard dense
-kernel (``csrc/dense.cu``) with 8 warps a block instead of 4, and with its
-32-row loop bounded by the warp's rows and unrolled 8 times instead of
-fully; the dense-table kernel (``csrc/ext_gemm.cu``) with 128-slot or
-256-slot column tiles at every height instead of the width it picks from
-the tree, with 192-slot tiles where it takes 256, held to the registers of
-two blocks an SM, with 8-feature chunks instead of 16, and with a 2-stage
-ring instead of 3. The script swaps each variant into the port's wrapper
-and times it against the committed build at the same shapes (the walk and
-the sparse kernel on the mammography EIF, 100 trees, height 8, k = 6, and
-the same 1,000,000 rows; the 128- and 256-slot tiles also on seeded F = k
-= 274 forests of height 7 and 10). Every variant must give the committed build's result bit for bit. Times are
-CUDA-event medians, taken in turns (committed, variant, variant,
-committed).
+``build/``, that takes another data path or another size: the EIF path
+kernels (``csrc/ext_walk.cu``) reading x[f] through L1 instead of the
+block's shared-memory row tile, walking 2 rows a thread, interleaved,
+instead of 1 (a patch the script holds, ``TWO_ROW_WALK``), and reading
+each record's 16-byte chunks as plain loads instead of through the
+read-only path (``__ldg``); the standard dense kernel
+(``csrc/dense.cu``) with 8 warps a block instead of 4, and with its 32-row
+loop bounded by the warp's rows and unrolled 8 times instead of fully; the
+dense-table kernel (``csrc/ext_gemm.cu``) with 128-slot or 256-slot column tiles at every
+height instead of the width it picks from the tree, with 192-slot tiles
+where it takes 256, held to the registers of two blocks an SM, with
+8-feature chunks instead of 16, and with a 2-stage ring instead of 3. The
+script swaps each variant into the port's wrapper and times it against the
+committed build at the same shapes (the path kernels on the mammography
+EIF and the same 1,000,000 rows; the dense-table kernel on a seeded F = k
+= 274 forest and 65,536 rows, the 128- and 256-slot tiles also at heights
+7 and 10). The record layout is timed the same way with another table:
+the path kernels' records with two terms and their i32 feature indices to
+a chunk instead of three with 10-bit ones. Every variant must give the
+committed build's result bit for bit. Times are CUDA-event medians, taken
+in turns (committed, variant, variant, committed). The small-batch switch point of the path kernels: each kernel's
+bulk launch (a thread a row) against its small-batch launch (a warp a
+row), in turns and bitwise equal, on the first 1 to 262,144 of the rows.
 
 It also traces one warm ``model.score`` of the standard and of the EIF
 fixture model, in turns, and reports whether each trace holds the
@@ -70,7 +73,7 @@ sys.path.insert(0, str(ROOT))
 
 VARIANT_DIR = ROOT / "build" / "kernel_paths"
 OLD_TREE = VARIANT_DIR / "old"
-OLD_SOURCES = ("dense", "ext_dense")
+OLD_SOURCES = ("ext_walk", "ext_dense")
 STD_MODEL = ROOT / "tests" / "resources" / "torch_port" / "mammography_std" / "model"
 EIF_MODEL = ROOT / "tests" / "resources" / "torch_port" / "mammography_eif" / "model"
 MAMMOGRAPHY = ROOT / "tests" / "resources" / "mammography.csv"
@@ -78,26 +81,82 @@ ROWS, HIGH_DIM_ROWS, SEED = 1_000_000, 65_536, 0
 
 # the dense-table kernel's choice of column-tile width
 GEMM_TILES = "return m4 > 128 ? launch<4>"
+# the two EIF path kernels of csrc/ext_walk.cu, at the main path's shape
+PATH_CALLS = ("ext_walk_sum", "ext_sparse_mean")
+# rows of the small-batch switch measurement
+SWITCH_ROWS = (1, 64, 1024, 4096, 16384, 65536, 131072, 262144)
 # the dense-table kernel at every height the tool times it
 GEMM_HEIGHTS = ("ext_dense_mean_h7", "ext_dense_mean", "ext_dense_mean_h10")
 
+# The bulk path kernel's walk of one row a thread, and the same walk of two
+# rows a thread, interleaved level by level (a finished row steps on as a
+# copy of record 0 and keeps its leaf), in a tile of twice the rows.
+ONE_ROW_WALK = """    const long long row = base + threadIdx.x;
+    if (row >= n) continue;
+    const float* xr = X + row * f_count;
+    const float* xs = x_s + threadIdx.x;
+    const auto x_at = [&](int f) {
+      if constexpr (kSmemX) {
+        return xs[f * kTileRows];
+      } else {
+        return xr[f];
+      }
+    };
+    float acc = 0.f;
+    for (int t = 0; t < F.t_count; ++t) {
+      int code = F.roots[t];
+      while (code < 0) code = step<kTerms>(F, ~code, x_at);
+      add_tree<kMean>(acc, __int_as_float(code), t_real);
+    }
+    out[row] = acc;
+"""
+TWO_ROW_WALK = """    const long long row0 = base + threadIdx.x, row1 = row0 + kThreads;
+    if (row0 >= n) continue;
+    const bool two = row1 < n;
+    const float* xr0 = X + row0 * f_count;
+    const float* xr1 = X + (two ? row1 : row0) * f_count;
+    const float* xs0 = x_s + threadIdx.x;
+    const float* xs1 = xs0 + kThreads;
+    const auto x0 = [&](int f) {
+      if constexpr (kSmemX) {
+        return xs0[f * kTileRows];
+      } else {
+        return xr0[f];
+      }
+    };
+    const auto x1 = [&](int f) {
+      if constexpr (kSmemX) {
+        return xs1[f * kTileRows];
+      } else {
+        return xr1[f];
+      }
+    };
+    float acc0 = 0.f, acc1 = 0.f;
+    for (int t = 0; t < F.t_count; ++t) {
+      int c0 = F.roots[t], c1 = two ? c0 : 0;
+      while (c0 < 0 || c1 < 0) {
+        const int n0 = step<kTerms>(F, c0 < 0 ? ~c0 : 0, x0);
+        const int n1 = step<kTerms>(F, c1 < 0 ? ~c1 : 0, x1);
+        c0 = c0 < 0 ? n0 : c0;
+        c1 = c1 < 0 ? n1 : c1;
+      }
+      add_tree<kMean>(acc0, __int_as_float(c0), t_real);
+      add_tree<kMean>(acc1, __int_as_float(c1), t_real);
+    }
+    out[row0] = acc0;
+    if (two) out[row1] = acc1;
+"""
+
 # variant -> (library, calls it is timed on, [(text in the source, replacement), ...])
 VARIANTS = {
-    "walk_reads_through_ldg": ("ext_walk", ("ext_walk_sum",), [
-        ("float lv = t_leaf[0];", "float lv = __ldg(t_leaf);"),
-        ("dot = __fmul_rn(x[ni[1]], nw[1]);", "dot = __fmul_rn(__ldg(x + __ldg(ni + 1)), __ldg(nw + 1));"),
-        ("dot = __fmaf_rn(x[ni[0]], nw[0], dot);", "dot = __fmaf_rn(__ldg(x + __ldg(ni)), __ldg(nw), dot);"),
-        ("dot = __fmaf_rn(x[ni[q]], nw[q], dot);", "dot = __fmaf_rn(__ldg(x + __ldg(ni + q)), __ldg(nw + q), dot);"),
-        ("(dot >= t_off[node] ? 1 : 0);", "(dot >= __ldg(t_off + node) ? 1 : 0);"),
-        ("lv = t_leaf[node];", "lv = __ldg(t_leaf + node);"),
+    "path_x_through_l1": ("ext_walk", PATH_CALLS, [("  if (f <= kMaxTileFeatures) {\n", "  if (false) {\n")]),
+    "path_2_rows_per_thread": ("ext_walk", PATH_CALLS, [
+        ("constexpr int kTileRows = kThreads;", "constexpr int kTileRows = 2 * kThreads;"),
+        (ONE_ROW_WALK, TWO_ROW_WALK),
     ]),
-    "sparse_x_through_l1": ("ext_dense", ("ext_sparse_mean",), [
-        ("  while (b > 32 && (long long)f * b * 4 > kMaxTileBytes) b /= 2;\n", ""),
-        ("  const bool smem_x = (long long)f * b * 4 <= kMaxTileBytes;\n", "  const bool smem_x = false;\n"),
-    ]),
-    "sparse_tests_every_coordinate": ("ext_dense", ("ext_sparse_mean",), [
-        ("if (f < 0) break;  // merged away, and so are the rest\n            dot = __fmaf_rn(",
-         "if (f >= 0) dot = __fmaf_rn("),
+    "path_records_plain_loads": ("ext_walk", PATH_CALLS, [
+        ("const int4 head = __ldg(r);", "const int4 head = r[0];"),
+        ("const int4 v = __ldg(r + 1 + c);", "const int4 v = r[1 + c];"),
     ]),
     "dense_8_warps": ("dense", ("dense_mean",), [("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")]),
     "dense_rows_loop_unrolled_8": ("dense", ("dense_mean",), [
@@ -165,8 +224,9 @@ def serving_in_turns(rounds: int = 3) -> None:
 
 def build_variants() -> dict:
     """``{variant: path}`` of the libraries (the edited variants and the
-    earlier designs, ``old_dense`` and ``old_ext_dense``), all nvcc started
-    together."""
+    earlier designs, ``old_ext_walk`` and ``old_ext_dense``), all nvcc
+    started together. A variant that does not build is reported and left
+    out; an earlier design that does not build stops the run."""
     from isoforest_tpu_torch.ops import _build
 
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
@@ -193,9 +253,12 @@ def build_variants() -> dict:
     libs = {}
     for key, (proc, lib) in procs.items():
         log, _ = proc.communicate()
-        if proc.returncode != 0:
+        if proc.returncode == 0:
+            libs[key] = lib
+        elif key in VARIANTS:
+            emit({"variant": key, "build_failed": log[-4000:]})
+        else:
             raise SystemExit(f"nvcc failed for {key}:\n{log}")
-        libs[key] = lib
     return libs
 
 
@@ -242,20 +305,21 @@ def in_turns(first: str, first_call, second: str, second_call, reps: int) -> dic
 
 def kernel_calls(X_big, std_model, eif_model) -> dict:
     """``{call: (call, signatures, reps, shape)}`` at the main path's shapes
-    (and the dense-table kernel at heights 7 and 10 besides its cell's 8),
-    and the inputs of the dense-table kernel's cell."""
+    (the dense-table kernel also at heights 7 and 10 besides its cell's 8,
+    the path kernels also on records with i32 indices), then the path
+    kernels' rows on the card and their two tables."""
     import numpy as np
     import torch
 
     from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
-    from isoforest_tpu_torch.ops import dense, ext_dense, ext_walk
+    from isoforest_tpu_torch.ops import dense, ext_dense, ext_path, ext_walk
     from isoforest_tpu_torch.testing import random_extended_forest, rows
 
     dev = torch.device("cuda")
     Xd = torch.from_numpy(X_big).to(dev)
     std_tables = dense.pack_standard(std_model.forest)
     wt = ext_walk.walk_tables_extended(eif_model.forest)
-    st = ext_dense.sparse_hyperplane_tables(eif_model.forest)
+    st = ext_dense.sparse_path_records(eif_model.forest)
     rng = np.random.default_rng(SEED + 1)
     f5 = extended_forest_from_arrays(*random_extended_forest(rng, 100, 8, 274, 274, split_p=1.0))
     X5 = torch.from_numpy(rows(rng, HIGH_DIM_ROWS, 274)).to(dev)
@@ -265,16 +329,47 @@ def kernel_calls(X_big, std_model, eif_model) -> dict:
         "dense_mean": (lambda: dense.dense_mean(Xd, std_tables), dense._SIGNATURES, 7, rows_shape),
         "ext_dense_mean": (lambda: ext_dense.ext_dense_mean(X5, dt), ext_dense._DENSE_SIGNATURES, 3,
                            {"rows": HIGH_DIM_ROWS, "features": 274, "height": 8}),
-        "ext_walk_sum": (lambda: ext_walk.ext_walk_sum(Xd, wt), ext_walk._SIGNATURES, 9, rows_shape),
-        "ext_sparse_mean": (lambda: ext_dense.ext_sparse_mean(Xd, st), ext_dense._SPARSE_SIGNATURES, 7, rows_shape),
+        "ext_walk_sum": (lambda: ext_walk.ext_walk_sum(Xd, wt), ext_path.SIGNATURES, 9, rows_shape),
+        "ext_sparse_mean": (lambda: ext_dense.ext_sparse_mean(Xd, st), ext_path.SIGNATURES, 9, rows_shape),
     }
+    wide_wt, wide_st = with_i32_indices(wt), with_i32_indices(st)
+    calls["ext_walk_sum_i32"] = (lambda: ext_walk.ext_walk_sum(Xd, wide_wt), ext_path.SIGNATURES, 9, rows_shape)
+    calls["ext_sparse_mean_i32"] = (lambda: ext_dense.ext_sparse_mean(Xd, wide_st), ext_path.SIGNATURES, 9,
+                                    rows_shape)
     for height in (7, 10):
         table = ext_dense.dense_hyperplane_table(
             extended_forest_from_arrays(*random_extended_forest(rng, 100, height, 274, 274, split_p=1.0)))
         calls[f"ext_dense_mean_h{height}"] = (lambda table=table: ext_dense.ext_dense_mean(X5, table),
                                               ext_dense._DENSE_SIGNATURES, 3,
                                               {"rows": HIGH_DIM_ROWS, "features": 274, "height": height})
-    return calls, X5, dt
+    return calls, Xd, wt, st
+
+
+def with_i32_indices(p):
+    """Path records ``p`` with two terms and their i32 feature indices to a
+    chunk instead of three with 10-bit ones."""
+    import torch
+
+    from isoforest_tpu_torch.ops import ext_path
+
+    fields = [a.cpu().numpy() for a in ext_path.record_fields(p)]
+    records = ext_path.pack_records(*fields, chunk_terms=2)
+    return p._replace(records=torch.from_numpy(records).to(p.records.device), chunk_terms=2)
+
+
+def old_walk_tables(forest):
+    """The earlier walk's heap tables: offset (+inf off internal slots),
+    clamped indices, weights (0 at unused coordinates), leaf LUT."""
+    import torch
+
+    from isoforest_tpu_torch.ops.scoring_layout import leaf_lut
+
+    used = forest.indices >= 0
+    off = torch.where(used[..., 0], forest.offset, torch.tensor(float("inf"), device=forest.device))
+    weight = torch.where(used, forest.weights, torch.zeros((), device=forest.device))
+    leaf = leaf_lut(forest.num_instances, forest.max_nodes).to(forest.device)
+    return [a.float().contiguous() if a.is_floating_point() else a.int().contiguous()
+            for a in (off, forest.indices.clamp(min=0), weight, leaf)]
 
 
 def with_lib(name: str, lib, call):
@@ -288,38 +383,65 @@ def with_lib(name: str, lib, call):
     return run
 
 
-def compare_designs(libs, calls, X5, dt) -> None:
-    """Each redesigned dense kernel against its earlier design."""
+def compare_designs(libs, calls, Xd, eif_model) -> None:
+    """Each redesigned EIF path kernel against its earlier design."""
     import torch
 
     from isoforest_tpu_torch.ops import _build, dense, ext_dense
 
-    call, signatures, reps, _ = calls["dense_mean"]
-    committed = load_variant(_build.library_path("dense"), signatures)
-    old = load_variant(libs["old_dense"], signatures)
-    result = in_turns("old", with_lib("dense", old, call), "new", with_lib("dense", committed, call), reps)
-    _build._LIBS["dense"] = committed
-    emit({"kernel": "dense_mean", "rows": ROWS, **result})
+    n, f = Xd.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    off, idx, w, leaf = old_walk_tables(eif_model.forest)
+    sh = ext_dense.sparse_hyperplane_tables(eif_model.forest)  # the earlier K4's heap tables
+    old_walk = load_variant(libs["old_ext_walk"], {"ext_walk_sum": (ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
+                                                   + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
+                                                   + (ctypes.c_void_p,) * 2})
+    old_sparse = load_variant(libs["old_ext_dense"], {"ext_sparse_mean": (ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
+                                                      + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
+                                                      + (ctypes.c_void_p,) * 2})
+    t_count, m = off.shape
 
-    t_count, m = dt.value.shape
-    m_int = (m + 1) // 2 - 1
-    # the earlier design's table: node-major weights; kind 2 at a node with
-    # unused coordinates, 1 at another internal node
-    old_weight = dt.weight[:, :, :m_int].transpose(1, 2).contiguous()
-    old_kind = torch.where((dt.kind & ext_dense.KIND_INTERNAL) != 0,
-                           torch.where((dt.kind & ext_dense.KIND_UNUSED) != 0, 2, 1), 0).int().contiguous()
-    old_lib = load_variant(libs["old_ext_dense"], ext_dense._DENSE_SIGNATURES)
-
-    def old_call():
-        out = torch.empty(X5.shape[0], dtype=torch.float32, device=X5.device)
-        err = old_lib.ext_dense_mean(X5.data_ptr(), X5.shape[0], X5.shape[1], dt.value.data_ptr(),
-                                     old_kind.data_ptr(), old_weight.data_ptr(), old_weight.shape[2], t_count,
-                                     dense.height_of(m), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "earlier ext_dense_mean")
+    def old_walk_call():
+        out = torch.empty(n, dtype=torch.float32, device=Xd.device)
+        _build.check(old_walk.ext_walk_sum(Xd.data_ptr(), n, f, off.data_ptr(), idx.data_ptr(), w.data_ptr(),
+                                           leaf.data_ptr(), t_count, dense.height_of(m), idx.shape[2],
+                                           out.data_ptr(), stream), "earlier ext_walk_sum")
         return out
 
-    result = in_turns("old", old_call, "new", calls["ext_dense_mean"][0], calls["ext_dense_mean"][2])
-    emit({"kernel": "ext_dense_mean", "rows": X5.shape[0], "features": X5.shape[1], **result})
+    def old_sparse_call():
+        out = torch.empty(n, dtype=torch.float32, device=Xd.device)
+        _build.check(old_sparse.ext_sparse_mean(Xd.data_ptr(), n, f, sh.value.data_ptr(), sh.kind.data_ptr(),
+                                                sh.index.data_ptr(), sh.weight.data_ptr(), sh.index.shape[2],
+                                                t_count, dense.height_of(m), out.data_ptr(), stream),
+                     "earlier ext_sparse_mean")
+        return out
+
+    for name, old_call in (("ext_walk_sum", old_walk_call), ("ext_sparse_mean", old_sparse_call)):
+        call, _, reps, _ = calls[name]
+        emit({"kernel": name, "rows": n, **in_turns("old", old_call, "new", call, reps)})
+
+
+def compare_layouts(calls) -> None:
+    """The path kernels on records with i32 indices against the committed
+    narrowest type, with the committed build."""
+    for name in PATH_CALLS:
+        call, _, reps, shape = calls[name]
+        emit({"kernel": name, "variant": "path_records_i32_indices", **shape,
+              **in_turns("committed", call, "variant", calls[f"{name}_i32"][0], reps)})
+
+
+def switch_point(Xd, wt, st) -> None:
+    """Each path kernel's bulk launch against its small-batch launch on the
+    first ``SWITCH_ROWS`` rows, in turns, bitwise equal."""
+    from isoforest_tpu_torch.ops import ext_path
+
+    for n in SWITCH_ROWS:
+        x = Xd[:n].contiguous()
+        for name, tables in (("ext_walk_sum", wt), ("ext_sparse_mean", st)):
+            result = in_turns("bulk", lambda: ext_path.launch(name, x, tables, tree_parallel=False),
+                              "small", lambda: ext_path.launch(name, x, tables, tree_parallel=True), reps=9)
+            emit({"kernel": name, "switch_rows": n, "committed_switch": ext_path.TREE_PARALLEL_MAX_ROWS,
+                  **result})
 
 
 def compare_paths(libs, calls) -> None:
@@ -327,6 +449,8 @@ def compare_paths(libs, calls) -> None:
     from isoforest_tpu_torch.ops import _build
 
     for variant, (name, call_names, _) in VARIANTS.items():
+        if variant not in libs:
+            continue
         for call_name in call_names:
             call, signatures, reps, shape = calls[call_name]
             committed = load_variant(_build.library_path(name), signatures)
@@ -389,9 +513,11 @@ def main() -> int:
     std_model, eif_model = load_model(str(STD_MODEL)), load_model(str(EIF_MODEL))
     trace_copies(X_big, std_model, eif_model)
     _build.build()
-    calls, X5, dt = kernel_calls(X_big, std_model, eif_model)
-    compare_designs(libs, calls, X5, dt)
+    calls, Xd, wt, st = kernel_calls(X_big, std_model, eif_model)
+    compare_designs(libs, calls, Xd, eif_model)
     compare_paths(libs, calls)
+    compare_layouts(calls)
+    switch_point(Xd, wt, st)
     serving_in_turns()
     print(smi, flush=True)
     return 0
