@@ -19,12 +19,17 @@ Phases, each printing one JSON line:
 4. full_size: 1,000,000 seeded rows through the loaded 100-tree model with
    each strategy, through ``model.score``, with every launch counter set to
    0 just before and read just after; then each kernel against its plain
-   PyTorch version on the same inputs, and CUDA-event timings;
-5. edges: seeded synthetic forests (F in {1, 5, 6, 12, 13, 17, 274}, T = 13
-   with a root-leaf tree, every height from 0 to the dense kernel's fence
-   10 (10 also at F = 6) and above it to 12 for the walk, N in {1, 1023,
-   1025}, rows with NaN and +-inf): each kernel against its plain version,
-   the dense kernel exactly (max |delta| 0);
+   PyTorch version on the same inputs, exactly (max |delta| 0), the walk
+   also with its small-batch launch (a warp a row, four 32-tree rounds, the
+   last ragged) on the first 4,096 rows, and CUDA-event timings;
+5. edges: seeded synthetic forests (F in {1, 5, 6, 12, 13, 17, 274, 1025},
+   T = 13 with a root-leaf tree, or 100, every height from 0 to the dense
+   kernel's fence 10 (10 also at F = 6) and above it to 12 for the walk, N
+   in {1, 31, 33, 1023, 1025, 4096}, on both sides of the walk's
+   small-batch switch and at 300,001, where the walk's bulk launch stages
+   a forest's records in shared memory if they fit, rows with NaN and
+   +-inf): each kernel against its plain version exactly (max |delta| 0),
+   the walk with both its bulk and its small-batch launch;
 6. serving: ``model.score`` latency on batches of 1, 64 and 4,096 rows,
    with ``strategy="auto"`` (the walk) and ``"dense"``.
 
@@ -256,7 +261,8 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     # 9. the EIF main path: counters at 0 just before, read just after
     f5 = extended_forest_from_arrays(*random_extended_forest(rng, 100, 8, 274, 274, split_p=1.0))
     X5 = torch.from_numpy(rows(rng, HIGH_DIM_ROWS, 274)).to(dev)
-    for name in ext_path.launches:
+    eif_paths = ("ext_walk_sum", "ext_sparse_mean")
+    for name in eif_paths:
         ext_path.launches[name] = 0
     ext_dense.ext_dense_mean.launches = 0
     t0 = time.perf_counter()
@@ -269,7 +275,8 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     s_high = score_matrix(f5, X5, 256, strategy="dense")
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = {**ext_path.launches, "ext_dense_mean": ext_dense.ext_dense_mean.launches}
+    launches = {**{name: ext_path.launches[name] for name in eif_paths},
+                "ext_dense_mean": ext_dense.ext_dense_mean.launches}
     require(all(v > 0 for v in launches.values()), f"an EIF kernel did not launch: {launches}")
     for name, s, n_rows in (("walk", s_walk, FULL_ROWS), ("dense", s_dense, FULL_ROWS),
                             ("high_dim_dense", s_high, HIGH_DIM_ROWS)):
@@ -493,7 +500,7 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     # 11. serving-sized batches through the EIF model.score
     emit({"phase": "ext_serving", "latency": serving_latency(model, X_big, ("auto", "dense"))})
 
-    walk_src = sparse_src = "isoforest_tpu_torch/csrc/ext_walk.cu"
+    walk_src = sparse_src = "isoforest_tpu_torch/csrc/path_walk.cu"
     entry = {"route": "cuda", "library_ms": None}
     return [
         {**entry, "name": "ext_walk_sum", "source": walk_src,
@@ -530,7 +537,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from isoforest_tpu_torch import load_model
     from isoforest_tpu_torch.io.interop import forest_from_arrays
-    from isoforest_tpu_torch.ops import _build, dense, walk
+    from isoforest_tpu_torch.ops import _build, dense, ext_path, walk
     from isoforest_tpu_torch.ops.traversal import standard_path_lengths
     from isoforest_tpu_torch.testing import random_heap_forest, rows
     from isoforest_tpu_torch.utils.math import score_from_path_length
@@ -592,7 +599,7 @@ def main() -> int:
     idx = rng.integers(0, len(X_m), FULL_ROWS)
     jitter = rng.normal(0.0, 0.01, (FULL_ROWS, X_m.shape[1])).astype(np.float32)
     X_big = (X_m[idx] + jitter * X_m.std(axis=0)).astype(np.float32)
-    walk.walk_sum.launches = 0
+    ext_path.launches["walk_sum"] = 0
     dense.dense_mean.launches = 0
     t0 = time.perf_counter()
     s_walk = model.score(X_big, strategy="walk")
@@ -601,7 +608,7 @@ def main() -> int:
     s_dense = model.score(X_big, strategy="dense")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {"walk": walk.walk_sum.launches, "dense": dense.dense_mean.launches}
+    launches = {"walk": ext_path.launches["walk_sum"], "dense": dense.dense_mean.launches}
     require(launches["walk"] > 0 and launches["dense"] > 0, f"a kernel did not launch: {launches}")
     for name, s in (("walk", s_walk), ("dense", s_dense)):
         require(tuple(s.shape) == (FULL_ROWS,) and bool(torch.isfinite(s).all())
@@ -615,8 +622,11 @@ def main() -> int:
     n, f = Xd.shape
     t_n, m = dt.value.shape
     walk_err = float((walk.walk_sum(Xd, wt) - walk.walk_sum_plain(Xd, wt)).abs().max())
+    # the small-batch launch against the plain walk of its own order
+    walk_small_err = float((ext_path.launch("walk_sum", Xd[:4096], wt, tree_parallel=True)
+                            - walk.walk_sum_plain(Xd[:4096], wt, tree_parallel=True)).abs().max())
     dense_err = float((dense.dense_mean(Xd, dt) - dense.dense_mean_plain(Xd, dt)).abs().max())
-    require(walk_err <= 1e-5, f"walk kernel vs plain: {walk_err}")
+    require(walk_err == 0.0 and walk_small_err == 0.0, f"walk kernel vs plain: {walk_err}, {walk_small_err}")
     require(dense_err == 0.0, f"dense kernel vs plain: {dense_err}")
     times = {
         "walk_ms": time_ms(lambda: walk.walk_sum(Xd, wt), inner=10),
@@ -634,16 +644,17 @@ def main() -> int:
     # of every tree; that count is printed as dense_algorithm_ops_ms, the
     # time the card needs for it at peak, beside the bound and not as one.
     internal = model.forest.feature >= 0
+    feature = model.forest.feature.clamp(min=0).long()
     visited = torch.zeros((), dtype=torch.float64, device=dev)
     for t in range(t_n):
         node = torch.zeros(n, dtype=torch.long, device=dev)
         for _ in range(model.forest.height):
             inside = internal[t][node]
             visited += inside.sum()
-            step = Xd.gather(1, wt.feature[t][node].long()[:, None])[:, 0] >= wt.threshold[t][node]
+            step = Xd.gather(1, feature[t][node][:, None])[:, 0] >= model.forest.threshold[t][node]
             node = torch.where(inside, 2 * node + 1 + step.long(), node)
     x_bytes, out_bytes = n * f * 4, n * 4
-    walk_bytes = x_bytes + out_bytes + 3 * t_n * m * 4
+    walk_bytes = x_bytes + out_bytes + (wt.records.numel() + wt.roots.numel()) * 4
     dense_bytes = x_bytes + out_bytes + 2 * t_n * m * 4
     path_ops = float(visited) + n * t_n
 
@@ -654,6 +665,8 @@ def main() -> int:
           "launches": launches, "score_walk_s": t1 - t0, "score_dense_s": t2 - t1,
           "walk_vs_dense_max_abs_score": score_gap,
           "walk_kernel_vs_plain_max_abs_sum": walk_err,
+          "walk_small_batch_vs_plain_max_abs_sum_4096": walk_small_err,
+          "walk_records": wt.records.shape[0], "walk_table_bytes": walk_bytes - x_bytes - out_bytes,
           "dense_kernel_vs_plain_max_abs_mean": dense_err,
           "mean_internal_visits_per_row_tree": float(visited) / (n * t_n),
           **times,
@@ -669,7 +682,8 @@ def main() -> int:
 
     # 5. edges: synthetic forests, kernel against plain version
     # every height to the dense fence, each at one of F in {1, 6, 12, 13, 274}
-    # (274: the row tile in 5 feature chunks) and N in {1, 1023, 1025}
+    # (274: the row tile in 5 feature chunks; the dense kernel's too) and N in
+    # {1, 1023, 1025}
     widths, row_counts = (1, 6, 12, 13, 274), (1, 1023, 1025)
     cases = [{"features": widths[h % 5], "height": h, "rows": row_counts[h % 3]}
              for h in range(dense.DENSE_MAX_HEIGHT + 1)]
@@ -679,17 +693,43 @@ def main() -> int:
         {"features": 17, "height": 6, "rows": 1023},
         {"features": 6, "height": dense.DENSE_MAX_HEIGHT + 1, "rows": 1023},
         {"features": 5, "height": 12, "rows": 1025},
+        {"features": 274, "height": 12, "rows": 33},
+        # the walk: rows too wide for the row tile (x[f] through L1), one
+        # warp's rows and around it, 100 trees (four small-batch rounds, the
+        # last ragged), and N on both sides of the small-batch switch, where
+        # walk_sum's own choice takes each launch
+        {"features": 1025, "height": 6, "rows": 1025},
+        {"features": 6, "height": 8, "rows": 31, "trees": 100},
+        {"features": 6, "height": 8, "rows": 4096, "trees": 100},
+        {"features": 13, "height": 9, "rows": 33},
+        {"features": 6, "height": 8, "rows": ext_path.TREE_PARALLEL_MAX_ROWS["walk_sum"]},
+        {"features": 6, "height": 8, "rows": ext_path.TREE_PARALLEL_MAX_ROWS["walk_sum"] + 1},
+        # rows enough for the staged bulk walk: root leaves only (no record),
+        # records that fit beside the row tile, and ones that do not
+        {"features": 1, "height": 0, "rows": 300_001},
+        {"features": 13, "height": 9, "rows": 300_001},
+        {"features": 17, "height": 6, "rows": 300_001, "trees": 100},
+        {"features": 5, "height": 12, "rows": 300_001},
     ]
     edges = []
     for case in cases:
         Xe = rows(rng, case["rows"], case["features"])
-        forest = forest_from_arrays(*random_heap_forest(rng, 13, case["height"], case["features"], 0.85))
+        trees = case.get("trees", 13)
+        forest = forest_from_arrays(*random_heap_forest(rng, trees, case["height"], case["features"], 0.85))
         xe = torch.from_numpy(Xe).to(dev)
         wte = walk.walk_tables(forest)
-        w_err = float((walk.walk_sum(xe, wte) - walk.walk_sum_plain(xe, wte)).abs().max())
+        want = walk.walk_sum_plain(xe, wte)
+        w_err = max(float((walk.walk_sum(xe, wte) - want).abs().max()),
+                    *(float((ext_path.launch("walk_sum", xe, wte, tree_parallel=small) - want).abs().max())
+                      for small in (False, True)))
         g_err = float((walk.path_lengths_walk(xe, wte) - standard_path_lengths(forest, xe)).abs().max())
-        row = dict(case, trees=13, walk_vs_plain=w_err, walk_vs_gather=g_err)
-        require(w_err <= 1e-5 and g_err <= 1e-5, f"walk edge case {row}")
+        # shared memory a staged walk block would take (it stages where two
+        # blocks fit an SM, at most 113 KB each on the H100, and F <= 48)
+        row = dict(case, trees=trees, walk_records=wte.records.shape[0],
+                   walk_staged_block_bytes=wte.records.numel() * 4 + case["features"] * 1024 * 4,
+                   walk_vs_plain=w_err, walk_vs_gather=g_err)
+        # the gather walk sums 8-tree blocks, then divides: another order
+        require(w_err == 0.0 and g_err <= 1e-5, f"walk edge case {row}")
         if case["height"] <= dense.DENSE_MAX_HEIGHT:
             dte = dense.pack_standard(forest)
             d_err = float((dense.dense_mean(xe, dte) - dense.dense_mean_plain(xe, dte)).abs().max())
@@ -718,9 +758,9 @@ def main() -> int:
     ext_kernels = eif_phases(dev, rng, X_m, y_m, X_big)
 
     emit({"kernels": [
-        {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/walk.cu",
+        {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",
          "replaces": "isoforest_tpu/ops/pallas_walk.py:312", "launches": launches["walk"],
-         "max_abs_err": walk_err, "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
+         "max_abs_err": max(walk_err, walk_small_err), "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
          "bound_ms": walk_bound, "bound_by": walk_by, "library_ms": None},
         {"name": "dense_mean", "route": "cuda", "source": "isoforest_tpu_torch/csrc/dense.cu",
          "replaces": "isoforest_tpu/ops/pallas_traversal.py:278", "launches": launches["dense"],

@@ -3,9 +3,9 @@ with hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 It serves standard and extended (EIF) forests: load a model the JAX
 package (or the reference) saved, and score rows on the card through the
-O(h) walk kernels (``csrc/walk.cu``, ``ext_walk_sum`` of
-``csrc/ext_walk.cu``) or the dense level-walk kernels (``csrc/dense.cu``,
-``ext_sparse_mean`` of ``csrc/ext_walk.cu``, ``csrc/ext_gemm.cu``). Entry points
+O(h) walk kernels (``walk_sum`` and ``ext_walk_sum`` of
+``csrc/path_walk.cu``) or the dense level-walk kernels (``csrc/dense.cu``,
+``ext_sparse_mean`` of ``csrc/path_walk.cu``, ``csrc/ext_gemm.cu``). Entry points
 run on the card unless the caller names another device; ``device="cpu"``
 runs the kernels' plain PyTorch versions.
 

@@ -21,7 +21,7 @@
 // ones, a 12-way select per slot whatever the width) issued about 511
 // warp-instructions per (row, tree), 50 ms of the card's ~1e12
 // warp-instructions per second. The function itself needs only the
-// compares on each row's path, as the walk (walk.cu) does.
+// compares on each row's path, as the walk (walk_sum in path_walk.cu) does.
 //
 // What the design does about it:
 //  * Lanes over slots. Per tree, lane l of a warp holds, for each 32-slot

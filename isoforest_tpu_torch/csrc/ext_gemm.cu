@@ -49,7 +49,7 @@
 // one dependent chain per slot, a warp-uniform weight load, a +0.0 test and
 // a shared-memory read per FMA, 6 warps per SM) was bound by latency at 54x
 // that. The function itself needs only the slots on each row's path, as the
-// walk (ext_walk.cu) evaluates.
+// walk (ext_walk_sum in path_walk.cu) evaluates.
 //
 // What the design does about it:
 //  * A block of 256 threads owns 128 rows and loops over the trees in order.

@@ -25,7 +25,7 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "isoforest_tpu_torch"
 
-SOURCES = {"walk": "walk.cu", "dense": "dense.cu", "ext_walk": "ext_walk.cu", "ext_gemm": "ext_gemm.cu"}
+SOURCES = {"dense": "dense.cu", "path_walk": "path_walk.cu", "ext_gemm": "ext_gemm.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -3,7 +3,7 @@
 ``_extended_pallas_sparse`` (k <= 32) and ``_extended_pallas_dense``.
 
 Host-side table builders, the wrappers of the two CUDA kernels
-(``ext_sparse_mean`` of ``csrc/ext_walk.cu`` on the sparse hyperplanes'
+(``ext_sparse_mean`` of ``csrc/path_walk.cu`` on the sparse hyperplanes'
 path records, ``csrc/ext_gemm.cu`` on the dense table) and their plain
 PyTorch versions. Both reference plain versions (:func:`ext_sparse_mean_plain`
 on the heap tables of :func:`sparse_hyperplane_tables`, which only it
@@ -259,7 +259,7 @@ def ext_sparse_mean(X: torch.Tensor, records: ext_path.PathRecords) -> torch.Ten
     (:func:`sparse_path_records`), ``f32[N]``.
 
     On a CUDA tensor this launches ``ext_sparse_mean`` of
-    ``csrc/ext_walk.cu`` through :func:`.ext_path.launch`, which counts it
+    ``csrc/path_walk.cu`` through :func:`.ext_path.launch`, which counts it
     in ``ext_path.launches["ext_sparse_mean"]``; on a CPU tensor it runs
     the same walk over the records in plain PyTorch
     (:func:`.ext_path.path_sum_plain`), which the tests hold bit for bit

@@ -1,22 +1,27 @@
-"""Compact per-node hyperplane records and the path-walk core shared by the
-two EIF path kernels of ``csrc/ext_walk.cu``: the walk ``ext_walk_sum``
-(:mod:`.ext_walk`) and the sparse-hyperplane level walk ``ext_sparse_mean``
-(:mod:`.ext_dense`).
+"""Compact per-node records and the path-walk core of ``csrc/path_walk.cu``,
+shared by its three kernels: the standard walk ``walk_sum`` (:mod:`.walk`),
+the EIF walk ``ext_walk_sum`` (:mod:`.ext_walk`) and the EIF
+sparse-hyperplane level walk ``ext_sparse_mean`` (:mod:`.ext_dense`).
 
 A record per internal node, in 16-byte chunks of int32 words: a header
-``(offset bits, left code, right code, terms)``, then the node's terms in
-chunks: three to a chunk ``(w0, w1, w2, i0 | i1 << 10 | i2 << 20)`` where
-every feature index fits 10 bits (F <= 1024), else two ``(w0, w1, i0,
-i1)``. Records of a tree are its internal heap slots in ascending order
-(the top levels together), trees one after the other. A child code ``< 0`` is ``~record``
-of an internal node; ``>= 0`` is the float32 bits of a leaf's path length
-(``depth + c(numInstances)``, 0 at a hole), so a leaf costs the kernel no
-load. ``roots[t]`` is tree t's root code.
+``(threshold or offset bits, left code, right code, fourth word)``, then,
+for an EIF node, its terms in chunks: three to a chunk ``(w0, w1, w2, i0 |
+i1 << 10 | i2 << 20)`` where every feature index fits 10 bits (F <= 1024),
+else two ``(w0, w1, i0, i1)``. An EIF header's fourth word is its term
+count; a standard node's record is the header alone (``k = 0``), its fourth
+word the split feature. Records of a tree are its internal heap slots in
+ascending order (the top levels together), trees one after the other. A
+child code ``< 0`` is ``~record`` of an internal node; ``>= 0`` is the
+float32 bits of a leaf's path length (``depth + c(numInstances)``, +0.0 at a
+hole), so a leaf costs the kernel no load. ``roots[t]`` is tree t's root
+code.
 
-The two kernels differ in the dot order (:func:`hyperplane_dot`) and the
-sum order (a sum over trees, or ``acc += pl / T``). :func:`path_sum_plain`
-walks the same records in plain PyTorch; :func:`launch` is the one place
-either kernel is launched, and counts it.
+A standard node sends the row right when ``x[feature] >= threshold``, an
+EIF node when its hyperplane dot ``>= offset`` (NaN goes left). The EIF
+kernels differ in the dot order (:func:`hyperplane_dot`) and the sum order
+(a sum over trees, or ``acc += pl / T``). :func:`path_sum_plain` walks the
+same records in plain PyTorch; :func:`launch` is the one place a kernel of
+the core is launched, and counts it.
 """
 
 from __future__ import annotations
@@ -35,13 +40,18 @@ from . import _build
 PAIRED_MAX_K = 16
 
 # Batches of at most this many rows take the small-batch kernel (one warp a
-# row, lanes over trees); larger ones one thread a row. Measured on the H100
-# by tools/torch_port_kernel_paths.py (PERF.md).
-TREE_PARALLEL_MAX_ROWS = 1 << 16
+# row, lanes over trees); larger ones one thread a row. Each is where the
+# two launches cross on the H100 (tools/torch_port_kernel_paths.py, PERF.md):
+# 65,536 rows for the EIF kernels, 98,304 for the standard walk.
+TREE_PARALLEL_MAX_ROWS = {"walk_sum": 98_304, "ext_walk_sum": 1 << 16, "ext_sparse_mean": 1 << 16}
+
+# Trees a round of the small-batch kernel: one a lane of a warp.
+WARP_TREES = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-SIGNATURES = {name: (_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P) for name in ("ext_walk_sum", "ext_sparse_mean")}
+SIGNATURES = {name: (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P)
+              for name in ("walk_sum", "ext_walk_sum", "ext_sparse_mean")}
 
 # The widest row whose feature indices fit a record's 10-bit fields.
 PACKED_MAX_FEATURES = 1 << 10
@@ -49,10 +59,11 @@ PACKED_MAX_FEATURES = 1 << 10
 
 class PathRecords(NamedTuple):
     """``records`` int32 [R, 4 * (1 + ceil(k / chunk_terms))] and ``roots``
-    int32 [T] (module docstring); ``k``, the most terms a record holds;
-    ``chunk_terms``, 3 (10-bit indices) or 2 (i32 indices); ``height``, the
-    trees' heap height; ``min_features``, ``1 + max(index)``: the narrowest
-    row the kernel reads."""
+    int32 [T] (module docstring); ``k``, the most terms a record holds (0:
+    a standard forest's header-only records); ``chunk_terms``, 3 (10-bit
+    indices) or 2 (i32 indices); ``height``, the trees' heap height;
+    ``min_features``, ``1 + max(index or feature)``: the narrowest row the
+    kernel reads."""
 
     records: torch.Tensor
     roots: torch.Tensor
@@ -91,8 +102,11 @@ def build_path_records(internal, offset, leaf, index, weight, terms, height: int
     """Records from heap-order numpy arrays: ``internal`` bool, ``offset``
     and ``leaf`` (the path length at a non-internal slot) f32 ``[T, M]``;
     ``index`` i32 and ``weight`` f32 ``[T, M, k]``, each node's terms first;
-    ``terms`` i32 ``[T, M]``. Built on the CPU, moved to ``device``."""
-    t_n, m, k = index.shape
+    ``terms`` i32 ``[T, M]``. With ``index`` and ``weight`` None, header-only
+    records (``k = 0``) whose fourth word is ``terms``: a standard forest's
+    split features. Built on the CPU, moved to ``device``."""
+    t_n, m = np.shape(internal)
+    k = 0 if index is None else index.shape[2]
     internal = np.array(internal, bool)
     internal[:, (m + 1) // 2 - 1 :] = False  # the bottom level holds only leaves
     leaf = np.where(internal, np.float32(0), np.asarray(leaf, np.float32))
@@ -103,12 +117,17 @@ def build_path_records(internal, offset, leaf, index, weight, terms, height: int
     code = np.where(internal, ~rid, leaf.view(np.int32)).astype(np.int32)
     tt, ss = np.nonzero(internal)  # tree-major, slots ascending: record order
     terms = np.asarray(terms, np.int32)[tt, ss]
-    live = np.arange(k) < terms[:, None]
-    used = np.where(live, np.asarray(index)[tt, ss], 0)
-    min_features = int(used.max(initial=0)) + 1
-    chunk_terms = 3 if min_features <= PACKED_MAX_FEATURES else 2
+    if k == 0:
+        used, weight = np.zeros((len(tt), 0), np.int32), np.zeros((len(tt), 0), np.float32)
+        min_features = int(terms.max(initial=0)) + 1
+    else:
+        live = np.arange(k) < terms[:, None]
+        used = np.where(live, np.asarray(index)[tt, ss], 0)
+        weight = np.where(live, np.asarray(weight, np.float32)[tt, ss], np.float32(0))
+        min_features = int(used.max(initial=0)) + 1
+    chunk_terms = 3 if k == 0 or min_features <= PACKED_MAX_FEATURES else 2
     rec = pack_records(np.asarray(offset, np.float32)[tt, ss], code[tt, 2 * ss + 1], code[tt, 2 * ss + 2], terms,
-                       used, np.where(live, np.asarray(weight, np.float32)[tt, ss], np.float32(0)), chunk_terms)
+                       used, weight, chunk_terms)
     return PathRecords(
         records=torch.from_numpy(rec).to(device),
         roots=torch.from_numpy(np.ascontiguousarray(code[:, 0])).to(device),
@@ -160,28 +179,43 @@ def hyperplane_dot(X: torch.Tensor, index: torch.Tensor, weight: torch.Tensor,
     return dot
 
 
-def tree_path_lengths(X: torch.Tensor, p: PathRecords, paired: bool) -> Iterator[torch.Tensor]:
-    """Each tree's path length of every row, ``f32[N]``, tree by tree: the
-    walk over the records in plain PyTorch."""
-    offset, left, right, terms, index, weight = record_fields(p)
+def tree_path_lengths(X: torch.Tensor, p: PathRecords, paired: bool, tree_parallel: bool = False
+                      ) -> Iterator[torch.Tensor]:
+    """Each tree's path length of every row, ``f32[N]``, in tree order: the
+    walk over the records in plain PyTorch, tree by tree as the bulk kernel's
+    thread walks them, or (``tree_parallel``) ``WARP_TREES`` trees side by
+    side as the small-batch kernel's lanes do. A standard node (``k = 0``)
+    compares ``x[feature]``, an EIF node its dot in the ``paired`` order or
+    the chain from 0."""
+    offset, left, right, fourth, index, weight = record_fields(p)
     n = X.shape[0]
-    for t in range(p.num_trees):
-        code = p.roots[t].long().expand(n)
+    group = WARP_TREES if tree_parallel else 1
+    for t0 in range(0, p.num_trees, group):
+        roots = p.roots[t0 : t0 + group].long()
+        g = roots.shape[0]
+        xg = X.repeat_interleave(g, dim=0) if g > 1 else X  # row i, tree t0 + j at i * g + j
+        code = roots.repeat(n)
         for _ in range(p.height if p.records.shape[0] else 0):
             walking = code < 0
             node = torch.where(walking, ~code, 0)
-            dot = hyperplane_dot(X, index[node], weight[node], terms[node], paired)
-            code = torch.where(walking, torch.where(dot >= offset[node], right[node], left[node]).long(), code)
-        yield code.to(torch.int32).view(torch.float32)
+            if p.k == 0:
+                value = xg.gather(1, fourth[node].long()[:, None])[:, 0]
+            else:
+                value = hyperplane_dot(xg, index[node], weight[node], fourth[node], paired)
+            code = torch.where(walking, torch.where(value >= offset[node], right[node], left[node]).long(), code)
+        yield from code.to(torch.int32).view(torch.float32).view(n, g).unbind(1)
 
 
-def path_sum_plain(X: torch.Tensor, p: PathRecords, paired: bool, mean: bool) -> torch.Tensor:
-    """Both kernels' function in plain PyTorch, ``f32[N]``: per tree in tree
+def path_sum_plain(X: torch.Tensor, p: PathRecords, paired: bool, mean: bool, tree_parallel: bool = False
+                   ) -> torch.Tensor:
+    """The core's function in plain PyTorch, ``f32[N]``: per tree in tree
     order ``acc += pl`` (``mean``: ``acc += pl / T``, a true division by a
-    device tensor), each dot in the ``paired`` order or the chain from 0."""
+    device tensor), each EIF dot in the ``paired`` order or the chain from
+    0; ``tree_parallel`` walks as the small-batch kernel does, to the same
+    sum."""
     acc = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
     t_real = torch.tensor(float(p.num_trees), dtype=torch.float32, device=X.device)
-    for pl in tree_path_lengths(X, p, paired):
+    for pl in tree_path_lengths(X, p, paired, tree_parallel):
         acc = acc + (pl / t_real if mean else pl)
     return acc
 
@@ -198,6 +232,9 @@ def check_records(X: torch.Tensor, p: PathRecords, what: str) -> None:
         if a.device != X.device or a.dtype != torch.int32 or a.dim() != dim or not a.is_contiguous():
             raise ValueError(f"{what} table {name!r} must be a contiguous int32 {dim}-D tensor on {X.device}, "
                              f"got {a.dtype} {tuple(a.shape)} on {a.device}")
+    if (p.k == 0) != (what == "walk_sum"):
+        raise ValueError(f"{what} takes {'header-only' if what == 'walk_sum' else 'hyperplane'} records, "
+                         f"got records of k = {p.k} terms")
     if p.chunk_terms not in (2, 3) or p.records.shape[1] != 4 * (1 - (-p.k // p.chunk_terms)):
         raise ValueError(f"{what} table 'records' has {p.records.shape[1]} words a record, not k = {p.k}'s")
     if X.shape[1] < p.min_features:
@@ -206,14 +243,14 @@ def check_records(X: torch.Tensor, p: PathRecords, what: str) -> None:
         raise ValueError(f"{what} takes fewer than 2^31 rows and records")
 
 
-# Launches of each kernel of csrc/ext_walk.cu, counted where they happen.
+# Launches of each kernel of csrc/path_walk.cu, counted where they happen.
 launches = {name: 0 for name in SIGNATURES}
 
 
 def launch(name: str, X: torch.Tensor, p: PathRecords, tree_parallel: Optional[bool] = None) -> torch.Tensor:
-    """Launch kernel ``name`` of ``csrc/ext_walk.cu`` on CUDA ``X``, ``f32[N]``,
+    """Launch kernel ``name`` of ``csrc/path_walk.cu`` on CUDA ``X``, ``f32[N]``,
     and count it in ``launches[name]``. ``tree_parallel``: the small-batch
-    kernel (default: at most ``TREE_PARALLEL_MAX_ROWS`` rows); the wrappers
+    kernel (default: at most ``TREE_PARALLEL_MAX_ROWS[name]`` rows); the wrappers
     take the default, a caller that compares the two sides names one."""
     n, f = X.shape
     out = torch.empty(n, dtype=torch.float32, device=X.device)
@@ -222,10 +259,10 @@ def launch(name: str, X: torch.Tensor, p: PathRecords, tree_parallel: Optional[b
     if p.records.data_ptr() % 16:
         raise ValueError("the record table must be 16-byte aligned")
     if tree_parallel is None:
-        tree_parallel = n <= TREE_PARALLEL_MAX_ROWS
-    lib = _build.load("ext_walk", SIGNATURES)
+        tree_parallel = n <= TREE_PARALLEL_MAX_ROWS[name]
+    lib = _build.load("path_walk", SIGNATURES)
     err = getattr(lib, name)(
-        X.data_ptr(), n, f, p.records.data_ptr(), p.roots.data_ptr(),
+        X.data_ptr(), n, f, p.records.data_ptr(), p.records.shape[0], p.roots.data_ptr(),
         p.num_trees, p.k, p.chunk_terms, int(tree_parallel), out.data_ptr(),
         torch.cuda.current_stream(X.device).cuda_stream,
     )

@@ -2,7 +2,7 @@
 ``isoforest_tpu/ops/pallas_walk.py::_extended_walk``.
 
 Host-side table builder, the CUDA kernel's wrapper (``ext_walk_sum`` of
-``csrc/ext_walk.cu``, counted by :func:`.ext_path.launch`) and its plain
+``csrc/path_walk.cu``, counted by :func:`.ext_path.launch`) and its plain
 PyTorch version. The walk's tables are the compact per-node records of :mod:`.ext_path`, which
 the sparse-hyperplane level walk shares. The wrapper returns the SUM of
 path lengths over trees, as ``_extended_walk`` does;
@@ -62,7 +62,7 @@ def ext_walk_sum_plain(X: torch.Tensor, tables: PathRecords) -> torch.Tensor:
 def ext_walk_sum(X: torch.Tensor, tables: PathRecords) -> torch.Tensor:
     """Sum over trees of each row's path length, ``f32[N]``.
 
-    On a CUDA tensor this launches ``ext_walk_sum`` of ``csrc/ext_walk.cu``
+    On a CUDA tensor this launches ``ext_walk_sum`` of ``csrc/path_walk.cu``
     through :func:`.ext_path.launch`, which counts it in
     ``ext_path.launches["ext_walk_sum"]``; on a CPU tensor it runs
     :func:`ext_walk_sum_plain`.

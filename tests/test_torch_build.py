@@ -10,7 +10,7 @@ from isoforest_tpu_torch.ops import _build
 
 
 def test_every_kernel_source_is_listed_and_present():
-    assert set(_build.SOURCES) == {"walk", "dense", "ext_walk", "ext_gemm"}
+    assert set(_build.SOURCES) == {"dense", "path_walk", "ext_gemm"}
     for source in _build.SOURCES.values():
         assert (_build.CSRC_DIR / source).is_file()
 
@@ -27,13 +27,13 @@ def test_flags_change_the_library_path(monkeypatch):
 
 
 def test_source_changes_the_library_path(monkeypatch, tmp_path):
-    for name in ("walk.cu", "ext_walk.cu"):
+    for name in ("dense.cu", "path_walk.cu"):
         (tmp_path / name).write_text("// a kernel\n")
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
-    before = _build.library_path("ext_walk")
-    (tmp_path / "ext_walk.cu").write_text("// an edited kernel\n")
-    assert _build.library_path("ext_walk") != before
-    assert _build.library_path("walk").name != before.name
+    before = _build.library_path("path_walk")
+    (tmp_path / "path_walk.cu").write_text("// an edited kernel\n")
+    assert _build.library_path("path_walk") != before
+    assert _build.library_path("dense").name != before.name
 
 
 def _fake_toolkit(tmp_path, monkeypatch, script: str):
@@ -48,20 +48,20 @@ def _fake_toolkit(tmp_path, monkeypatch, script: str):
 
 
 def test_build_starts_every_nvcc_together_and_times_each(tmp_path, monkeypatch):
-    """ext_walk's nvcc sleeps longer than walk's; each reports its own time,
-    and the libraries land under their hashed names."""
+    """path_walk's nvcc sleeps longer than dense's; each reports its own
+    time, and the libraries land under their hashed names."""
     _fake_toolkit(tmp_path, monkeypatch, (
         "src = args[-1]\n"
-        "time.sleep(0.6 if src.endswith('ext_walk.cu') else 0.05)\n"
+        "time.sleep(0.6 if src.endswith('path_walk.cu') else 0.05)\n"
         "pathlib.Path(args[args.index('-o') + 1]).write_text('lib')\n"
         "print('ptxas info    : Used 32 registers')\n"
     ))
-    report = _build.build(["ext_walk", "walk"], ptxas_verbose=True)
-    assert set(report) == {"ext_walk", "walk"}
-    assert report["walk"]["seconds"] < 0.5 <= report["ext_walk"]["seconds"]
-    assert "Used 32 registers" in report["walk"]["log"]
-    assert _build.library_path("walk").read_text() == "lib"
-    assert _build.build(["walk"]) == {}  # built already
+    report = _build.build(["path_walk", "dense"], ptxas_verbose=True)
+    assert set(report) == {"path_walk", "dense"}
+    assert report["dense"]["seconds"] < 0.5 <= report["path_walk"]["seconds"]
+    assert "Used 32 registers" in report["dense"]["log"]
+    assert _build.library_path("dense").read_text() == "lib"
+    assert _build.build(["dense"]) == {}  # built already
 
 
 def test_failed_nvcc_raises_with_its_log(tmp_path, monkeypatch):

@@ -1,5 +1,5 @@
 """The PyTorch port's EIF dense level walks (``ops/ext_dense.py``, the plain
-versions of ``ext_sparse_mean`` of ``csrc/ext_walk.cu`` and of
+versions of ``ext_sparse_mean`` of ``csrc/path_walk.cu`` and of
 ``csrc/ext_gemm.cu``) against the JAX package's ``_extended_pallas_sparse``
 (k <= 32) and ``_extended_pallas_dense`` (k > 32), both through
 ``pallas_traversal.path_lengths_pallas`` in interpret mode, on the CPU.

@@ -1,5 +1,5 @@
 """The PyTorch port's EIF walk (``ops/ext_walk.py``, the plain version of
-``csrc/ext_walk.cu``) and EIF gather walk (``ops/traversal.py``) against
+``csrc/path_walk.cu``) and EIF gather walk (``ops/traversal.py``) against
 the JAX package's walk kernel ``_extended_walk``
 (``pallas_walk.path_lengths_walk`` in interpret mode) and gather walk, on
 the CPU.

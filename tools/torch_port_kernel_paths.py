@@ -11,43 +11,50 @@ CUDA toolkit::
 ``--extract-old REV`` writes the package and ``chip_smoke.py`` as they
 were at git revision ``REV`` to ``build/kernel_paths/old/`` and exits; the
 copy travels with the checkout to a machine without git. The second
-command then builds the EIF path kernels of that tree (``csrc/ext_walk.cu``
-with the walk over heap tables, and ``csrc/ext_dense.cu``, which then held
-the sparse-hyperplane level walk that evaluated every slot) beside the
-committed ones and times each earlier design against the committed one in
-turns (old, new, new, old) at the shapes of the main path of
-``chip_smoke.py``: the mammography EIF (100 trees, height 8, k = 6) and
-1,000,000 rows, the earlier designs' heap tables rebuilt from the forest.
-Each pair must agree bit for bit. It also measures ``chip_smoke.py``'s
-serving latency (``model.score`` of 1, 64 and 4,096 rows, ``auto`` and
-``dense``, both fixture models) of the old tree and of this one, six runs
-each, in turns that alternate which runs first, each in a process of its
-own.
+command then builds that tree's path kernels beside the committed ones:
+its ``csrc/walk.cu``, the standard walk over heap tables staged tile by
+tile in shared memory, and its ``csrc/ext_walk.cu``, the two EIF path
+kernels on the walk core over the records that ``csrc/path_walk.cu`` now
+shares with the standard walk. It times each earlier design against the
+committed one in turns (old, new, new, old) at the shapes of the main path
+of ``chip_smoke.py``: the mammography standard model and EIF (100 trees,
+height 8; the EIF k = 6) and 1,000,000 rows, the standard walk's heap
+tables rebuilt from the forest. Each pair must agree bit for bit. It also
+measures ``chip_smoke.py``'s serving latency (``model.score`` of 1, 64 and
+4,096 rows, ``auto`` and ``dense``, both fixture models) of the old tree
+and of this one, six runs each, in turns that alternate which runs first,
+each in a process of its own.
 
 Each variant is a textual edit of a copy of a kernel source, built under
 ``build/``, that takes another data path or another size: the EIF path
-kernels (``csrc/ext_walk.cu``) reading x[f] through L1 instead of the
+kernels (``csrc/path_walk.cu``) reading x[f] through L1 instead of the
 block's shared-memory row tile, walking 2 rows a thread, interleaved,
 instead of 1 (a patch the script holds, ``TWO_ROW_WALK``), and reading
 each record's 16-byte chunks as plain loads instead of through the
-read-only path (``__ldg``); the standard dense kernel
+read-only path (``__ldg``); the standard walk's bulk batches through the
+core's kernel (records through ``__ldg``, blocks of 128, 256 or 1,024
+threads) instead of the kernel that stages the forest's records in shared
+memory, and that staged kernel with blocks of 512 threads instead of 1,024
+or reading x through L1 instead of its row tile; the standard dense kernel
 (``csrc/dense.cu``) with 8 warps a block instead of 4, and with its 32-row
 loop bounded by the warp's rows and unrolled 8 times instead of fully; the
-dense-table kernel (``csrc/ext_gemm.cu``) with 128-slot or 256-slot column tiles at every
-height instead of the width it picks from the tree, with 192-slot tiles
-where it takes 256, held to the registers of two blocks an SM, with
-8-feature chunks instead of 16, and with a 2-stage ring instead of 3. The
-script swaps each variant into the port's wrapper and times it against the
-committed build at the same shapes (the path kernels on the mammography
-EIF and the same 1,000,000 rows; the dense-table kernel on a seeded F = k
-= 274 forest and 65,536 rows, the 128- and 256-slot tiles also at heights
-7 and 10). The record layout is timed the same way with another table:
-the path kernels' records with two terms and their i32 feature indices to
-a chunk instead of three with 10-bit ones. Every variant must give the
-committed build's result bit for bit. Times are CUDA-event medians, taken
-in turns (committed, variant, variant, committed). The small-batch switch point of the path kernels: each kernel's
-bulk launch (a thread a row) against its small-batch launch (a warp a
-row), in turns and bitwise equal, on the first 1 to 262,144 of the rows.
+dense-table kernel (``csrc/ext_gemm.cu``) with 128-slot or 256-slot column
+tiles at every height instead of the width it picks from the tree, with
+192-slot tiles where it takes 256, held to the registers of two blocks an
+SM, with 8-feature chunks instead of 16, and with a 2-stage ring instead of
+3. The script swaps each variant into the port's wrapper and times it
+against the committed build at the same shapes (the path kernels on the
+mammography models and the same 1,000,000 rows; the dense-table kernel on
+a seeded F = k = 274 forest and 65,536 rows, the 128- and 256-slot tiles
+also at heights 7 and 10). The record layout is timed the same way with
+another table: the EIF path kernels' records with two terms and their i32
+feature indices to a chunk instead of three with 10-bit ones. Every
+variant must give the committed build's result bit for bit. Times are
+CUDA-event medians, taken in turns (committed, variant, variant,
+committed). The small-batch switch point of the path kernels: each
+kernel's bulk launch (a thread a row) against its small-batch launch (a
+warp a row), in turns and bitwise equal, on the first 1 to 262,144 of the
+rows.
 
 It also traces one warm ``model.score`` of the standard and of the EIF
 fixture model, in turns, and reports whether each trace holds the
@@ -73,7 +80,7 @@ sys.path.insert(0, str(ROOT))
 
 VARIANT_DIR = ROOT / "build" / "kernel_paths"
 OLD_TREE = VARIANT_DIR / "old"
-OLD_SOURCES = ("ext_walk", "ext_dense")
+OLD_SOURCES = ("walk", "ext_walk")
 STD_MODEL = ROOT / "tests" / "resources" / "torch_port" / "mammography_std" / "model"
 EIF_MODEL = ROOT / "tests" / "resources" / "torch_port" / "mammography_eif" / "model"
 MAMMOGRAPHY = ROOT / "tests" / "resources" / "mammography.csv"
@@ -81,10 +88,11 @@ ROWS, HIGH_DIM_ROWS, SEED = 1_000_000, 65_536, 0
 
 # the dense-table kernel's choice of column-tile width
 GEMM_TILES = "return m4 > 128 ? launch<4>"
-# the two EIF path kernels of csrc/ext_walk.cu, at the main path's shape
-PATH_CALLS = ("ext_walk_sum", "ext_sparse_mean")
+# the path kernels of csrc/path_walk.cu, at the main path's shape
+EIF_PATH_CALLS = ("ext_walk_sum", "ext_sparse_mean")
+PATH_CALLS = ("walk_sum",) + EIF_PATH_CALLS
 # rows of the small-batch switch measurement
-SWITCH_ROWS = (1, 64, 1024, 4096, 16384, 65536, 131072, 262144)
+SWITCH_ROWS = (1, 64, 1024, 4096, 16384, 65536, 98304, 131072, 262144)
 # the dense-table kernel at every height the tool times it
 GEMM_HEIGHTS = ("ext_dense_mean_h7", "ext_dense_mean", "ext_dense_mean_h10")
 
@@ -147,16 +155,37 @@ TWO_ROW_WALK = """    const long long row0 = base + threadIdx.x, row1 = row0 + k
     if (two) out[row1] = acc1;
 """
 
+# The standard walk's bulk launch: the staged kernel where it fits, else the
+# core's bulk kernel through __ldg.
+THROUGH_LDG = ("else if (small || !launch_staged(x, n, f, F, r, o, s))", "else")
+
 # variant -> (library, calls it is timed on, [(text in the source, replacement), ...])
 VARIANTS = {
-    "path_x_through_l1": ("ext_walk", PATH_CALLS, [("  if (f <= kMaxTileFeatures) {\n", "  if (false) {\n")]),
-    "path_2_rows_per_thread": ("ext_walk", PATH_CALLS, [
+    "path_x_through_l1": ("path_walk", EIF_PATH_CALLS, [("  if (f <= kMaxTileFeatures) {\n", "  if (false) {\n")]),
+    "path_2_rows_per_thread": ("path_walk", EIF_PATH_CALLS, [
         ("constexpr int kTileRows = kThreads;", "constexpr int kTileRows = 2 * kThreads;"),
         (ONE_ROW_WALK, TWO_ROW_WALK),
     ]),
-    "path_records_plain_loads": ("ext_walk", PATH_CALLS, [
+    "path_records_plain_loads": ("path_walk", EIF_PATH_CALLS, [
         ("const int4 head = __ldg(r);", "const int4 head = r[0];"),
         ("const int4 v = __ldg(r + 1 + c);", "const int4 v = r[1 + c];"),
+    ]),
+    # the standard walk's bulk batches through the core's kernel (records
+    # through __ldg, 128-thread blocks), also with blocks of 256 and 1,024
+    # threads; the staged kernel at 512 threads a block, and reading x
+    # through L1 instead of staging the row tile
+    "walk_records_through_ldg": ("path_walk", ("walk_sum",), [THROUGH_LDG]),
+    "walk_ldg_256_threads": ("path_walk", ("walk_sum",), [
+        THROUGH_LDG, ("constexpr int kThreads = 128;", "constexpr int kThreads = 256;")]),
+    "walk_ldg_1024_threads": ("path_walk", ("walk_sum",), [
+        THROUGH_LDG, ("constexpr int kThreads = 128;", "constexpr int kThreads = 1024;")]),
+    "walk_staged_512_threads": ("path_walk", ("walk_sum",), [
+        ("constexpr int kStageThreads = 1024;", "constexpr int kStageThreads = 512;")]),
+    "walk_staged_x_through_l1": ("path_walk", ("walk_sum",), [
+        ("for (int i = threadIdx.x; i < kStageThreads * f_count; i += kStageThreads) {",
+         "for (int i = threadIdx.x; i < 0; i += kStageThreads) {"),
+        ("code = xs[head.w * kStageThreads] >=", "code = X[row * f_count + head.w] >="),
+        ("(size_t)r * sizeof(int4) + (size_t)f * kStageThreads * sizeof(float);", "(size_t)r * sizeof(int4);"),
     ]),
     "dense_8_warps": ("dense", ("dense_mean",), [("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")]),
     "dense_rows_loop_unrolled_8": ("dense", ("dense_mean",), [
@@ -224,7 +253,7 @@ def serving_in_turns(rounds: int = 3) -> None:
 
 def build_variants() -> dict:
     """``{variant: path}`` of the libraries (the edited variants and the
-    earlier designs, ``old_ext_walk`` and ``old_ext_dense``), all nvcc
+    earlier designs, ``old_walk`` and ``old_ext_walk``), all nvcc
     started together. A variant that does not build is reported and left
     out; an earlier design that does not build stops the run."""
     from isoforest_tpu_torch.ops import _build
@@ -306,18 +335,19 @@ def in_turns(first: str, first_call, second: str, second_call, reps: int) -> dic
 def kernel_calls(X_big, std_model, eif_model) -> dict:
     """``{call: (call, signatures, reps, shape)}`` at the main path's shapes
     (the dense-table kernel also at heights 7 and 10 besides its cell's 8,
-    the path kernels also on records with i32 indices), then the path
-    kernels' rows on the card and their two tables."""
+    the EIF path kernels also on records with i32 indices), then the path
+    kernels' rows on the card and ``{path kernel: its records}``."""
     import numpy as np
     import torch
 
     from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
-    from isoforest_tpu_torch.ops import dense, ext_dense, ext_path, ext_walk
+    from isoforest_tpu_torch.ops import dense, ext_dense, ext_path, ext_walk, walk
     from isoforest_tpu_torch.testing import random_extended_forest, rows
 
     dev = torch.device("cuda")
     Xd = torch.from_numpy(X_big).to(dev)
     std_tables = dense.pack_standard(std_model.forest)
+    std_wt = walk.walk_tables(std_model.forest)
     wt = ext_walk.walk_tables_extended(eif_model.forest)
     st = ext_dense.sparse_path_records(eif_model.forest)
     rng = np.random.default_rng(SEED + 1)
@@ -329,6 +359,7 @@ def kernel_calls(X_big, std_model, eif_model) -> dict:
         "dense_mean": (lambda: dense.dense_mean(Xd, std_tables), dense._SIGNATURES, 7, rows_shape),
         "ext_dense_mean": (lambda: ext_dense.ext_dense_mean(X5, dt), ext_dense._DENSE_SIGNATURES, 3,
                            {"rows": HIGH_DIM_ROWS, "features": 274, "height": 8}),
+        "walk_sum": (lambda: walk.walk_sum(Xd, std_wt), ext_path.SIGNATURES, 9, rows_shape),
         "ext_walk_sum": (lambda: ext_walk.ext_walk_sum(Xd, wt), ext_path.SIGNATURES, 9, rows_shape),
         "ext_sparse_mean": (lambda: ext_dense.ext_sparse_mean(Xd, st), ext_path.SIGNATURES, 9, rows_shape),
     }
@@ -342,7 +373,7 @@ def kernel_calls(X_big, std_model, eif_model) -> dict:
         calls[f"ext_dense_mean_h{height}"] = (lambda table=table: ext_dense.ext_dense_mean(X5, table),
                                               ext_dense._DENSE_SIGNATURES, 3,
                                               {"rows": HIGH_DIM_ROWS, "features": 274, "height": height})
-    return calls, Xd, wt, st
+    return calls, Xd, {"walk_sum": std_wt, "ext_walk_sum": wt, "ext_sparse_mean": st}
 
 
 def with_i32_indices(p):
@@ -358,18 +389,16 @@ def with_i32_indices(p):
 
 
 def old_walk_tables(forest):
-    """The earlier walk's heap tables: offset (+inf off internal slots),
-    clamped indices, weights (0 at unused coordinates), leaf LUT."""
+    """The earlier standard walk's heap tables: threshold (+inf off internal
+    slots), feature (clamped to >= 0), leaf LUT."""
     import torch
 
     from isoforest_tpu_torch.ops.scoring_layout import leaf_lut
 
-    used = forest.indices >= 0
-    off = torch.where(used[..., 0], forest.offset, torch.tensor(float("inf"), device=forest.device))
-    weight = torch.where(used, forest.weights, torch.zeros((), device=forest.device))
+    internal = forest.feature >= 0
+    thr = torch.where(internal, forest.threshold, torch.tensor(float("inf"), device=forest.device))
     leaf = leaf_lut(forest.num_instances, forest.max_nodes).to(forest.device)
-    return [a.float().contiguous() if a.is_floating_point() else a.int().contiguous()
-            for a in (off, forest.indices.clamp(min=0), weight, leaf)]
+    return [a.contiguous() for a in (thr.float(), forest.feature.clamp(min=0).int(), leaf.float())]
 
 
 def with_lib(name: str, lib, call):
@@ -383,40 +412,42 @@ def with_lib(name: str, lib, call):
     return run
 
 
-def compare_designs(libs, calls, Xd, eif_model) -> None:
-    """Each redesigned EIF path kernel against its earlier design."""
+def compare_designs(libs, calls, Xd, std_model, tables) -> None:
+    """Each path kernel against its earlier design: the standard walk
+    against the old tree's ``csrc/walk.cu`` on heap tables, the two EIF path
+    kernels against the old tree's ``csrc/ext_walk.cu`` on the same records
+    (its entries took no record count)."""
     import torch
 
-    from isoforest_tpu_torch.ops import _build, dense, ext_dense
+    from isoforest_tpu_torch.ops import _build
 
     n, f = Xd.shape
     stream = torch.cuda.current_stream().cuda_stream
-    off, idx, w, leaf = old_walk_tables(eif_model.forest)
-    sh = ext_dense.sparse_hyperplane_tables(eif_model.forest)  # the earlier K4's heap tables
-    old_walk = load_variant(libs["old_ext_walk"], {"ext_walk_sum": (ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
-                                                   + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
-                                                   + (ctypes.c_void_p,) * 2})
-    old_sparse = load_variant(libs["old_ext_dense"], {"ext_sparse_mean": (ctypes.c_void_p, ctypes.c_int, ctypes.c_int)
-                                                      + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
-                                                      + (ctypes.c_void_p,) * 2})
-    t_count, m = off.shape
+    P, I = ctypes.c_void_p, ctypes.c_int
+    thr, feat, leaf = old_walk_tables(std_model.forest)
+    old_walk = load_variant(libs["old_walk"], {"walk_sum": (P, I, I, P, P, P, I, I, P, P)})
+    old_ext = load_variant(libs["old_ext_walk"], {name: (P, I, I, P, P, I, I, I, I, P, P) for name in EIF_PATH_CALLS})
 
     def old_walk_call():
         out = torch.empty(n, dtype=torch.float32, device=Xd.device)
-        _build.check(old_walk.ext_walk_sum(Xd.data_ptr(), n, f, off.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                                           leaf.data_ptr(), t_count, dense.height_of(m), idx.shape[2],
-                                           out.data_ptr(), stream), "earlier ext_walk_sum")
+        _build.check(old_walk.walk_sum(Xd.data_ptr(), n, f, thr.data_ptr(), feat.data_ptr(), leaf.data_ptr(),
+                                       thr.shape[0], std_model.forest.height, out.data_ptr(), stream),
+                     "earlier walk_sum")
         return out
 
-    def old_sparse_call():
-        out = torch.empty(n, dtype=torch.float32, device=Xd.device)
-        _build.check(old_sparse.ext_sparse_mean(Xd.data_ptr(), n, f, sh.value.data_ptr(), sh.kind.data_ptr(),
-                                                sh.index.data_ptr(), sh.weight.data_ptr(), sh.index.shape[2],
-                                                t_count, dense.height_of(m), out.data_ptr(), stream),
-                     "earlier ext_sparse_mean")
-        return out
+    def old_ext_call(name):
+        p = tables[name]
 
-    for name, old_call in (("ext_walk_sum", old_walk_call), ("ext_sparse_mean", old_sparse_call)):
+        def run():
+            out = torch.empty(n, dtype=torch.float32, device=Xd.device)
+            _build.check(getattr(old_ext, name)(Xd.data_ptr(), n, f, p.records.data_ptr(), p.roots.data_ptr(),
+                                                p.num_trees, p.k, p.chunk_terms, 0, out.data_ptr(), stream),
+                         f"earlier {name}")
+            return out
+
+        return run
+
+    for name, old_call in (("walk_sum", old_walk_call), *((name, old_ext_call(name)) for name in EIF_PATH_CALLS)):
         call, _, reps, _ = calls[name]
         emit({"kernel": name, "rows": n, **in_turns("old", old_call, "new", call, reps)})
 
@@ -424,23 +455,24 @@ def compare_designs(libs, calls, Xd, eif_model) -> None:
 def compare_layouts(calls) -> None:
     """The path kernels on records with i32 indices against the committed
     narrowest type, with the committed build."""
-    for name in PATH_CALLS:
+    for name in EIF_PATH_CALLS:
         call, _, reps, shape = calls[name]
         emit({"kernel": name, "variant": "path_records_i32_indices", **shape,
               **in_turns("committed", call, "variant", calls[f"{name}_i32"][0], reps)})
 
 
-def switch_point(Xd, wt, st) -> None:
+def switch_point(Xd, tables) -> None:
     """Each path kernel's bulk launch against its small-batch launch on the
     first ``SWITCH_ROWS`` rows, in turns, bitwise equal."""
     from isoforest_tpu_torch.ops import ext_path
 
     for n in SWITCH_ROWS:
         x = Xd[:n].contiguous()
-        for name, tables in (("ext_walk_sum", wt), ("ext_sparse_mean", st)):
-            result = in_turns("bulk", lambda: ext_path.launch(name, x, tables, tree_parallel=False),
-                              "small", lambda: ext_path.launch(name, x, tables, tree_parallel=True), reps=9)
-            emit({"kernel": name, "switch_rows": n, "committed_switch": ext_path.TREE_PARALLEL_MAX_ROWS,
+        for name in PATH_CALLS:
+            p = tables[name]
+            result = in_turns("bulk", lambda: ext_path.launch(name, x, p, tree_parallel=False),
+                              "small", lambda: ext_path.launch(name, x, p, tree_parallel=True), reps=9)
+            emit({"kernel": name, "switch_rows": n, "committed_switch": ext_path.TREE_PARALLEL_MAX_ROWS[name],
                   **result})
 
 
@@ -513,11 +545,11 @@ def main() -> int:
     std_model, eif_model = load_model(str(STD_MODEL)), load_model(str(EIF_MODEL))
     trace_copies(X_big, std_model, eif_model)
     _build.build()
-    calls, Xd, wt, st = kernel_calls(X_big, std_model, eif_model)
-    compare_designs(libs, calls, Xd, eif_model)
+    calls, Xd, tables = kernel_calls(X_big, std_model, eif_model)
+    compare_designs(libs, calls, Xd, std_model, tables)
     compare_paths(libs, calls)
     compare_layouts(calls)
-    switch_point(Xd, wt, st)
+    switch_point(Xd, tables)
     serving_in_turns()
     print(smi, flush=True)
     return 0
