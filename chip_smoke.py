@@ -70,7 +70,33 @@ Then the same for the extended (EIF) forest:
 11. ext_serving: EIF ``model.score`` latency on batches of 1, 64 and 4,096
     rows, ``"auto"`` and ``"dense"``.
 
-Then a ``{"kernels": [...]}`` line for all five kernels, the ``nvidia-smi``
+Then fit of the standard forest, on the card:
+
+12. fit_parity: ``IsolationForest(contamination=0.02, random_seed=1).fit``
+    of the 11,183 mammography rows, the parameters the committed fixture
+    was fit with by the JAX package, held to the fixture node for node
+    (split features, leaf counts, thresholds bitwise); the root of any
+    differing subtree must be a Gumbel near-tie (the port's two draws
+    within 4 float32 ulps of ``max(|g|, 1)``), printed with its draws; the threshold within 2e-6 of
+    the fixture's at rank error 0 on the port's own scores, AUROC in [0.84,
+    0.90], and a save, reload and rescore that gives equal scores;
+13. fit_shuttle: a fit of the 49,097 shuttle rows (AUROC > 0.99), its
+    record count and whether ``walk_sum``'s bulk launch would stage those
+    records in shared memory, and the walk's time on 1M resampled rows;
+14. fit_full_size: 100 trees on the 1M rows (the Floyd sampler) with the
+    ``walk_sum`` counter set to 0 just before and read just after (the
+    threshold pass must launch it), the threshold at rank error 0, times
+    of the fit and of its parts (bag, growth, threshold pass), and
+    torch.profiler around one warm fit from rows on the card; then a fit
+    at F = 274 (five 64-feature chunks, a constant block in the second),
+    held to growth's invariants;
+15. fit_edges: small seeded fits (bootstrap, maxFeatures 0.5, a constant
+    column, all-constant rows, contamination 0, N = 300 with S = 256 for
+    the permutation sampler, subsample_trees 0.5), each held to growth's
+    invariants.
+
+Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
+with its launches in the 1M-row fit, ``fit_launches``), the ``nvidia-smi``
 name and power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises and exits non-zero. With no CUDA card, or without the
 package beside it, the script prints no result and exits 2.
@@ -89,6 +115,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "resources" / "torch_port" / "mammography_std"
 EIF_FIXTURE = ROOT / "tests" / "resources" / "torch_port" / "mammography_eif"
 MAMMOGRAPHY = ROOT / "tests" / "resources" / "mammography.csv"
+SHUTTLE = ROOT / "tests" / "resources" / "shuttle.csv"
 
 # H100 SXM published peaks: HBM bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -521,6 +548,233 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     ]
 
 
+def synced(fn):
+    """``(result, seconds)`` of one call on the host clock, synchronised
+    before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fit_phases(dev, X_m, y_m, X_big, fixture_model) -> dict:
+    """Phases 12-15 (fit of the standard forest); returns the threshold
+    pass's ``walk_sum`` launches on the 1M-row fit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import IsolationForest, load_model
+    from isoforest_tpu_torch.models.isolation_forest import _compute_and_set_threshold
+    from isoforest_tpu_torch.ops import bagging, ext_path, prng, tree_growth, walk
+    from isoforest_tpu_torch.ops.level_window import chunk_features
+    from isoforest_tpu_torch.ops.quantile import quantile_rank_error
+    from isoforest_tpu_torch.testing import growth_invariant_errors
+    from isoforest_tpu_torch.utils.math import height_limit
+
+    def invariants(model, X, allowed=None) -> None:
+        errors = growth_invariant_errors(*(a.cpu().numpy() for a in model.forest), X, model.num_samples, allowed)
+        require(not errors, f"growth invariants: {errors}")
+
+    def fitted_walk_errors(records, X) -> dict:
+        """walk_sum against its plain version on a fitted forest: the bulk
+        launch over all of ``X``, the small-batch one over its first 4,096 rows."""
+        return {
+            "bulk": float((walk.walk_sum(X, records) - walk.walk_sum_plain(X, records)).abs().max()),
+            "small_batch": float((walk.walk_sum(X[:4096], records)
+                                  - walk.walk_sum_plain(X[:4096], records, tree_parallel=True)).abs().max()),
+        }
+
+    def fit_keys(seed, n_trees, n_feats_total, n_feats):
+        """The fit's feature subsets and per-tree growth keys, re-derived."""
+        _, k_feat, k_grow = prng.split(prng.PRNGKey(seed, device=dev), 3)
+        return (bagging.feature_subsets(k_feat, n_feats_total, n_feats, n_trees),
+                bagging.per_tree_keys(k_grow, n_trees))
+
+    phases_t0 = time.perf_counter()
+    # 12. fit_parity: the fixture's own fit, on the card, node for node
+    est = IsolationForest(contamination=0.02, random_seed=1)
+    model, first_fit_s = synced(lambda: est.fit(X_m))
+    _, warm_fit_s = synced(lambda: est.fit(X_m))
+    require(model.device.type == "cuda", f"fit ran on {model.device}")
+    got = [a.cpu().numpy() for a in model.forest]
+    want = [a.cpu().numpy() for a in fixture_model.forest]
+    require(all(g.shape == w.shape for g, w in zip(got, want)), "forest shapes differ from the fixture's")
+    differ = (got[0] != want[0]) | (got[1].view(np.int32) != want[1].view(np.int32)) | (got[2] != want[2])
+    h = height_limit(model.num_samples)
+    fidx, tree_keys = fit_keys(1, model.forest.num_trees, X_m.shape[1], model.num_features)
+    geom = chunk_features(torch.zeros(1, model.num_features))
+    near_ties = []
+    for t, s in zip(*np.nonzero(differ)):
+        if s > 0 and differ[t, (s - 1) // 2]:
+            continue  # inside a differing subtree: its root explains it
+        # the root of a differing subtree: the same data reached it, so only
+        # the Gumbel argmax can differ, between two non-constant features
+        a, b = int(got[0][t, s]), int(want[0][t, s])
+        require(a >= 0 and b >= 0 and a != b, f"tree {t} slot {s}: a difference no Gumbel draw explains")
+        level = int(np.log2(s + 1))
+        row = s - (2**level - 1)
+        level_key = prng.split(tree_keys[t : t + 1], h + 1)[:, level]
+        chunk_gumbel, _ = tree_growth._level_draws(level_key, level, 2**h, geom.chunk, geom.n_chunks)
+        local = fidx[t].tolist()
+        draws = [float(chunk_gumbel(local.index(f) // geom.chunk)[0, row, local.index(f) % geom.chunk]) for f in (a, b)]
+        # torch's log and XLA's differ by at most one float32 ulp of
+        # max(|g|, 1) a draw (tests/test_torch_prng.py), so a flip needs the
+        # two draws within a few such ulps
+        unit = float(np.spacing(np.float32(max(abs(draws[0]), abs(draws[1]), 1.0))))
+        ulps = abs(draws[0] - draws[1]) / unit
+        near_ties.append({"tree": int(t), "slot": int(s), "port_feature": a, "jax_feature": b,
+                          "port_draws": draws, "ulps_apart": ulps})
+        require(ulps <= 4, f"tree {t} slot {s}: draws {draws} are {ulps} ulps apart, not a near-tie")
+    thr = model.outlier_score_threshold
+    scores = model.score(X_m)
+    rank_error = quantile_rank_error(scores, thr, 1.0 - 0.02)
+    auc = auroc(scores.cpu().numpy(), y_m)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = str(pathlib.Path(tmp) / "model")
+        _, save_s = synced(lambda: model.save(path))
+        loaded, load_s = synced(lambda: load_model(path))
+        reloaded_equal = bool(torch.equal(loaded.score(X_m), scores))
+        same_threshold = loaded.outlier_score_threshold == thr
+    emit({"phase": "fit_parity", "rows": len(X_m), "trees": model.forest.num_trees,
+          "heap_slots": model.forest.max_nodes, "first_fit_s": first_fit_s, "warm_fit_s": warm_fit_s,
+          "differing_nodes": int(differ.sum()), "differing_subtrees": near_ties, "threshold": thr,
+          "fixture_threshold": fixture_model.outlier_score_threshold, "rank_error": rank_error, "auroc": auc,
+          "save_s": save_s, "load_s": load_s, "reloaded_scores_equal": reloaded_equal})
+    require(abs(thr - 0.6111048460006714) <= 2e-6, f"fitted threshold {thr}")
+    require(rank_error == 0, f"threshold rank error {rank_error}")
+    require(0.84 <= auc <= 0.90, f"fitted mammography AUROC {auc}")
+    require(reloaded_equal and same_threshold, "the saved and reloaded model scores otherwise")
+
+    # 13. fit_shuttle: continuous-valued data, and K1's staging at its record count
+    data = np.loadtxt(SHUTTLE, delimiter=",", comments="#").astype(np.float32)
+    X_s, y_s = data[:, :-1], data[:, -1]
+    shuttle, shuttle_fit_s = synced(lambda: IsolationForest(contamination=0.07, random_seed=1).fit(X_s))
+    invariants(shuttle, X_s)
+    shuttle_auc = auroc(shuttle.score(X_s).cpu().numpy(), y_s)
+    records = walk.walk_tables(shuttle.forest)
+    n_records, f_s = records.records.shape[0], X_s.shape[1]
+    # csrc/path_walk.cu launch_staged: the records and a 1,024-row tile in
+    # one block's shared memory, two blocks an SM (1 KB reserved each), F <= 48
+    block_bytes = n_records * 16 + f_s * 1024 * 4
+    props = torch.cuda.get_device_properties(0)
+    per_sm = getattr(props, "shared_memory_per_multiprocessor", None)
+    optin = getattr(props, "shared_memory_per_block_optin", None)
+    stages = (None if per_sm is None or optin is None
+              else bool(f_s <= 48 and block_bytes <= optin and 2 * (block_bytes + 1024) <= per_sm))
+    X_sb = torch.from_numpy(X_s[np.random.default_rng(SEED).integers(0, len(X_s), FULL_ROWS)]).to(dev)
+    shuttle_walk_err = fitted_walk_errors(records, X_sb)
+    emit({"phase": "fit_shuttle", "rows": len(X_s), "features": f_s, "fit_s": shuttle_fit_s,
+          "auroc": shuttle_auc, "threshold": shuttle.outlier_score_threshold,
+          "walk_records": n_records, "staged_block_bytes": block_bytes,
+          "shared_memory_per_sm": per_sm, "shared_memory_per_block_optin": optin,
+          "bulk_walk_stages_records": stages, "walk_max_abs_err": shuttle_walk_err,
+          "walk_ms_1m_rows": time_ms(lambda: walk.walk_sum(X_sb, records), inner=10)})
+    require(shuttle_auc > 0.99, f"fitted shuttle AUROC {shuttle_auc}")
+    require(all(e == 0.0 for e in shuttle_walk_err.values()), f"walk_sum on the shuttle forest: {shuttle_walk_err}")
+
+    # 14. fit_full_size: 100 trees on the 1M rows (the Floyd sampler), the
+    # threshold pass scoring all of them through walk_sum
+    ext_path.launches["walk_sum"] = 0
+    est = IsolationForest(contamination=0.02, random_seed=1)
+    big, big_fit_s = synced(lambda: est.fit(X_big))
+    fit_launches = ext_path.launches["walk_sum"]
+    require(fit_launches >= 1, "the 1M-row fit's threshold pass did not launch walk_sum")
+    Xd = torch.from_numpy(X_big).to(dev)
+    invariants(big, X_big)
+    big_rank_error = quantile_rank_error(big.score(Xd), big.outlier_score_threshold, 1.0 - 0.02)
+    require(big_rank_error == 0, f"1M-row threshold rank error {big_rank_error}")
+    big_walk_err = fitted_walk_errors(walk.walk_tables(big.forest), Xd)
+    require(all(e == 0.0 for e in big_walk_err.values()), f"walk_sum on the 1M-row forest: {big_walk_err}")
+    k_bag, k_feat, k_grow = prng.split(prng.PRNGKey(1, device=dev), 3)
+    bag = bagging.bagged_indices(k_bag, FULL_ROWS, 256, 100, False)
+    fidx_b = bagging.feature_subsets(k_feat, X_big.shape[1], X_big.shape[1], 100)
+    keys_b = bagging.per_tree_keys(k_grow, 100)
+    parts_ms = {
+        "bag_ms": time_ms(lambda: bagging.bagged_indices(k_bag, FULL_ROWS, 256, 100, False), reps=3),
+        "growth_ms": time_ms(lambda: tree_growth.grow_forest(keys_b, Xd, bag, fidx_b, 8), reps=3),
+        "threshold_pass_ms": time_ms(lambda: _compute_and_set_threshold(big, Xd), reps=3),
+        "fit_from_device_rows_ms": time_ms(lambda: est.fit(Xd), reps=3),
+    }
+    # where a warm fit from rows on the card spends its time
+    fit_profile = profile_call(lambda: est.fit(Xd))
+    # the same fit at the high-dim width: five 64-feature chunks
+    rng = np.random.default_rng(SEED + 1)
+    X_h = rng.normal(size=(100_000, 274)).astype(np.float32)
+    X_h[:, 70:80] = 1.5  # a constant block in the second chunk
+    wide_est = IsolationForest(contamination=0.02, random_seed=2)
+    wide, wide_fit_s = synced(lambda: wide_est.fit(X_h))
+    _, wide_warm_fit_s = synced(lambda: wide_est.fit(X_h))
+    invariants(wide, X_h)
+    # growth's widest level: 4,096-row bags (h = 12, W = 4,096) over the five
+    # chunks; the Gumbel draws are held one chunk at a time, so the peak
+    # is that of one chunk's [T, W, 64] draws, not a level's five
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    deep, deep_fit_s = synced(lambda: IsolationForest(contamination=0.02, random_seed=2, max_samples=4096.0).fit(X_h))
+    deep_peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
+    invariants(deep, X_h)
+    emit({"phase": "fit_full_size", "rows": FULL_ROWS, "features": X_big.shape[1], "trees": 100,
+          "sampler": "floyd", "launches": {"walk_sum": fit_launches}, "fit_s": big_fit_s, **parts_ms,
+          "fit_profile": fit_profile,
+          "threshold": big.outlier_score_threshold, "rank_error": big_rank_error,
+          "walk_max_abs_err": big_walk_err,
+          "high_dim": {"rows": X_h.shape[0], "features": 274, "fit_s": wide_fit_s, "warm_fit_s": wide_warm_fit_s,
+                       "heap_slots": wide.forest.max_nodes, "threshold": wide.outlier_score_threshold},
+          "high_dim_4096_samples": {"fit_s": deep_fit_s, "heap_slots": deep.forest.max_nodes,
+                                    "peak_allocated_bytes": deep_peak_bytes,
+                                    "threshold": deep.outlier_score_threshold}})
+
+    # 15. fit_edges: small seeded fits, each held to growth's invariants
+    cases = {
+        "bootstrap": ({"bootstrap": True}, None),
+        "max_features_half": ({"max_features": 0.5}, None),
+        "constant_column": ({}, "constant_column"),
+        "all_constant": ({}, "all_constant"),
+        "zero_contamination": ({"contamination": 0.0}, None),
+        "permutation_300x256": ({"max_samples": 256.0}, "n300"),
+        "subsample_trees_half": ({}, "subsample"),
+    }
+    edges = []
+    for name, (kw, data_kind) in cases.items():
+        X_e = rng.normal(size=(300 if data_kind == "n300" else 2000, 6)).astype(np.float32)
+        if data_kind == "constant_column":
+            X_e[:, 2] = 3.0
+        elif data_kind == "all_constant":
+            X_e[:] = 1.0
+        params = {"num_estimators": 20, "max_samples": 64.0, "contamination": 0.05, "random_seed": 3, **kw}
+        m = IsolationForest(**params).fit(X_e, subsample_trees=0.5 if data_kind == "subsample" else None)
+        fidx_e, _ = fit_keys(3, m.forest.num_trees, 6, m.num_features)
+        invariants(m, X_e, fidx_e.cpu().numpy())
+        row = {"case": name, "trees": m.forest.num_trees, "num_samples": m.num_samples,
+               "num_features": m.num_features, "heap_slots": m.forest.max_nodes,
+               "threshold": m.outlier_score_threshold}
+        if data_kind == "all_constant":
+            require(bool((m.forest.feature == -1).all()) and bool((m.forest.num_instances[:, 0] == 64).all()),
+                    "all-constant data: every root must be a 64-row leaf")
+        if data_kind == "constant_column":
+            require(not bool((m.forest.feature == 2).any()), "the constant column was chosen")
+        if name == "zero_contamination":
+            require(m.outlier_score_threshold == -1.0, "contamination 0 set a threshold")
+        if data_kind == "n300":
+            k_bag_e = prng.split(prng.PRNGKey(3, device=dev), 3)[0]
+            bags = bagging.bagged_indices(k_bag_e, 300, 256, 20, False)
+            row["bags_distinct"] = bool((bags.sort(dim=1).values.diff(dim=1) > 0).all())
+            require(row["bags_distinct"], "the permutation sampler repeated a row")
+        if data_kind == "subsample":
+            require(m.forest.num_trees == 10 and m.params.num_estimators == 10, "subsample_trees=0.5 of 20")
+        edges.append(row)
+    emit({"phase": "fit_edges", "cases": edges, "fit_phases_s": time.perf_counter() - phases_t0})
+    return fit_launches
+
+
 def main() -> int:
     if not (ROOT / "isoforest_tpu_torch").is_dir() or not FIXTURE.is_dir() or not EIF_FIXTURE.is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -756,10 +1010,12 @@ def main() -> int:
     require(float((ref - s_walk[:4096]).abs().max()) <= 2e-6, "walk scores vs gather reference")
 
     ext_kernels = eif_phases(dev, rng, X_m, y_m, X_big)
+    fit_launches = fit_phases(dev, X_m, y_m, X_big, model)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",
          "replaces": "isoforest_tpu/ops/pallas_walk.py:312", "launches": launches["walk"],
+         "fit_launches": fit_launches,
          "max_abs_err": max(walk_err, walk_small_err), "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
          "bound_ms": walk_bound, "bound_by": walk_by, "library_ms": None},
         {"name": "dense_mean", "route": "cuda", "source": "isoforest_tpu_torch/csrc/dense.cu",

@@ -1,7 +1,8 @@
 """isoforest_tpu_torch: the isolation forest of ``isoforest_tpu`` in PyTorch,
 with hand-written CUDA kernels for NVIDIA Hopper (H100).
 
-It serves standard and extended (EIF) forests: load a model the JAX
+It fits standard forests and serves standard and extended (EIF) forests:
+fit one on the card (:class:`IsolationForest`) or load a model the JAX
 package (or the reference) saved, and score rows on the card through the
 O(h) walk kernels (``walk_sum`` and ``ext_walk_sum`` of
 ``csrc/path_walk.cu``) or the dense level-walk kernels (``csrc/dense.cu``,
@@ -9,20 +10,23 @@ O(h) walk kernels (``walk_sum`` and ``ext_walk_sum`` of
 run on the card unless the caller names another device; ``device="cpu"``
 runs the kernels' plain PyTorch versions.
 
-    from isoforest_tpu_torch import load_model
+    from isoforest_tpu_torch import IsolationForest, load_model
+    model = IsolationForest(contamination=0.02).fit(X)
+    model.save("path/to/model")
     scores = load_model("path/to/model").score(X)
 """
 
 from .io import persistence
-from .models import ExtendedIsolationForestModel, IsolationForestModel
+from .models import ExtendedIsolationForestModel, IsolationForest, IsolationForestModel
 from .ops.traversal import score_matrix
 
 
-def load_model(path: str, device=None, require_success: bool = True) -> IsolationForestModel:
+def load_model(path: str, device=None, require_success: bool = True, verify="auto") -> IsolationForestModel:
     """Load a model directory onto ``device`` (default: the card) as the
     class its metadata names: an :class:`ExtendedIsolationForestModel` or an
-    :class:`IsolationForestModel`."""
-    return persistence.load_model(path, device=device, require_success=require_success)
+    :class:`IsolationForestModel`. ``verify="auto"`` checks the directory's
+    ``_MANIFEST.json`` when it has one, and refuses it on any mismatch."""
+    return persistence.load_model(path, device=device, require_success=require_success, verify=verify)
 
 
-__all__ = ["ExtendedIsolationForestModel", "IsolationForestModel", "load_model", "score_matrix"]
+__all__ = ["ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel", "load_model", "score_matrix"]

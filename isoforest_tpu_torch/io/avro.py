@@ -1,19 +1,22 @@
-"""Read side of the Avro object-container format, in pure Python.
+"""The Avro object-container format, in pure Python.
 
-A copy of the read path of ``isoforest_tpu/io/avro.py`` (header, block
+A copy of ``isoforest_tpu/io/avro.py``: the read path (header, block
 decode, :func:`read_container`, codecs ``null``, ``deflate`` and
-``snappy``), so the port reads model files without the JAX package. It
-covers the subset of the Avro 1.x specification the model layout needs:
-primitives, records, arrays, maps, unions and the container framing (magic
-``Obj\\x01``, metadata map, 16-byte sync marker, record blocks).
+``snappy``) and the write path (:func:`encode_value`,
+:func:`write_container`, codecs ``null`` and ``deflate``), so the port
+reads and writes model files without the JAX package. It covers the subset
+of the Avro 1.x specification the model layout needs: primitives, records,
+arrays, maps, unions and the container framing (magic ``Obj\\x01``,
+metadata map, 16-byte sync marker, record blocks).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import struct
 import zlib
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Iterable, List, Tuple
 
 MAGIC = b"Obj\x01"
 SYNC_SIZE = 16
@@ -72,6 +75,20 @@ def snappy_decompress(data: bytes) -> bytes:
     return bytes(out)
 
 
+def encode_long(value: int) -> bytes:
+    """Zigzag varint of an int or long."""
+    out = bytearray()
+    n = (value << 1) ^ (value >> 63) if value >= 0 else ((-value) << 1) - 1
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
 class _Reader:
     __slots__ = ("data", "pos")
 
@@ -105,6 +122,55 @@ def _normalise(schema: Any) -> Any:
     if isinstance(schema, str) and schema[:1] in ("{", "["):
         return json.loads(schema)
     return schema
+
+
+def encode_value(schema: Any, value: Any, out: bytearray) -> None:
+    """Append the binary encoding of ``value`` under ``schema`` to ``out``.
+    A union takes its ``null`` branch for None, else its first other branch."""
+    schema = _normalise(schema)
+    if isinstance(schema, list):
+        for i, branch in enumerate(schema):
+            if (branch == "null") == (value is None):
+                out += encode_long(i)
+                encode_value(branch, value, out)
+                return
+        raise ValueError(f"union {schema!r} has no branch for {value!r}")
+    if isinstance(schema, dict):
+        t = schema["type"]
+        if t == "record":
+            for field in schema["fields"]:
+                encode_value(field["type"], value[field["name"]], out)
+            return
+        if t in ("array", "map"):
+            items = list(value.items() if t == "map" else value)
+            if items:
+                out += encode_long(len(items))
+                for item in items:
+                    if t == "array":
+                        encode_value(schema["items"], item, out)
+                    else:
+                        encode_value("string", item[0], out)
+                        encode_value(schema["values"], item[1], out)
+            out += encode_long(0)
+            return
+        encode_value(t, value, out)
+        return
+    if schema == "null":
+        return
+    if schema == "boolean":
+        out.append(1 if value else 0)
+    elif schema in ("int", "long"):
+        out += encode_long(int(value))
+    elif schema == "float":
+        out += struct.pack("<f", float(value))
+    elif schema == "double":
+        out += struct.pack("<d", float(value))
+    elif schema in ("string", "bytes"):
+        data = value.encode() if isinstance(value, str) else bytes(value)
+        out += encode_long(len(data))
+        out += data
+    else:
+        raise ValueError(f"unsupported Avro schema: {schema!r}")
 
 
 def decode_value(schema: Any, reader: _Reader) -> Any:
@@ -215,3 +281,56 @@ def read_container(path: str) -> Tuple[Any, List[dict]]:
         for _ in range(count):
             records.append(decode_value(schema, block_reader))
     return schema, records
+
+
+def _write_header(fh, schema_json: str, codec: str, sync: bytes) -> None:
+    header = bytearray(MAGIC)
+    meta = {"avro.schema": schema_json.encode(), "avro.codec": codec.encode()}
+    header += encode_long(len(meta))
+    for k, v in meta.items():
+        kb = k.encode()
+        header += encode_long(len(kb)) + kb + encode_long(len(v)) + v
+    header += encode_long(0)
+    header += sync
+    fh.write(bytes(header))
+
+
+def _compress_block(payload: bytes, codec: str, level: int = 9) -> bytes:
+    if codec == "deflate":
+        comp = zlib.compressobj(level, zlib.DEFLATED, -15)
+        return comp.compress(payload) + comp.flush()
+    if codec != "null":
+        raise ValueError(f"unsupported write codec {codec!r}")
+    return payload
+
+
+def write_container(
+    path: str,
+    schema: Any,
+    records: Iterable[dict],
+    codec: str = "deflate",
+    block_records: int = 4096,
+) -> None:
+    """Write an Avro object-container file, ``block_records`` records a block."""
+    schema_json = schema if isinstance(schema, str) else json.dumps(schema)
+    parsed = _normalise(schema_json)
+    sync = os.urandom(SYNC_SIZE)
+    with open(path, "wb") as fh:
+        _write_header(fh, schema_json, codec, sync)
+
+        def flush(batch: List[dict]) -> None:
+            if not batch:
+                return
+            body = bytearray()
+            for rec in batch:
+                encode_value(parsed, rec, body)
+            payload = _compress_block(bytes(body), codec)
+            fh.write(encode_long(len(batch)) + encode_long(len(payload)) + payload + sync)
+
+        batch: List[dict] = []
+        for rec in records:
+            batch.append(rec)
+            if len(batch) >= block_records:
+                flush(batch)
+                batch = []
+        flush(batch)

@@ -1,20 +1,30 @@
-"""Load a standard or extended model saved in the reference's on-disk layout.
+"""Save and load models in the reference's on-disk layout
+(``isoforest_tpu/io/persistence.py``).
 
-The load path of ``isoforest_tpu/io/persistence.py`` (``load_standard_model``
-:1193, ``load_extended_model`` :1249, ``load_model`` :482): a model
-directory holds ``metadata/part-00000`` (one JSON line: class, uid,
-paramMap, outlierScoreThreshold, numSamples, numFeatures, totalNumFeatures)
-and ``data/*.avro``, one row per node, ``(treeID, nodeData)`` or ``(treeID,
-extendedNodeData)`` with pre-order ids and ``-1`` sentinels
-(IsolationForestModelReadWrite.scala:82-132). The pre-order node table is
-rebuilt into the heap-tensor forest. Not ported yet: manifest verification,
+A model directory holds ``metadata/part-00000`` (one JSON line: class,
+uid, paramMap, outlierScoreThreshold, numSamples, numFeatures,
+totalNumFeatures) and ``data/*.avro``, one row per node, ``(treeID,
+nodeData)`` or ``(treeID, extendedNodeData)`` with pre-order ids and ``-1``
+sentinels (IsolationForestModelReadWrite.scala:82-132). The heap-tensor
+forest is written in pre-order and rebuilt on load, so each package loads
+what the other saves.
+
+A save builds the whole directory under a sibling temporary name
+(``<path>.__tmp-<hex>``), seals it with ``_MANIFEST.json``
+(:mod:`..resilience.manifest`) and renames it into place, so no reader sees
+a partial model; a load refuses such a temporary directory and verifies a
+present manifest before it reads a byte of Avro. Not ported yet:
 ``on_corrupt="drop"`` and the drift-baseline sidecar.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import shutil
+import time
+import uuid
 from typing import List, Tuple
 
 import numpy as np
@@ -22,13 +32,49 @@ import torch
 
 from ..ops.ext_growth import ExtendedForest
 from ..ops.tree_growth import StandardForest
+from ..resilience import manifest as _manifest
 from ..utils.device import resolve_device
 from ..utils.params import ExtendedIsolationForestParams, IsolationForestParams
 from ..utils.validation import UNKNOWN_TOTAL_NUM_FEATURES, logger
 from . import avro
 
+SPARK_VERSION_STRING = "3.5.5"  # the layout's version tag in metadata
+
 STANDARD_MODEL_CLASS = "com.linkedin.relevance.isolationforest.IsolationForestModel"
 EXTENDED_MODEL_CLASS = "com.linkedin.relevance.isolationforest.extended.ExtendedIsolationForestModel"
+STANDARD_ESTIMATOR_CLASS = "com.linkedin.relevance.isolationforest.IsolationForest"
+
+# The node table's schema, as spark-avro writes the reference's.
+STANDARD_SCHEMA = {
+    "type": "record",
+    "name": "topLevelRecord",
+    "fields": [
+        {"name": "treeID", "type": "int"},
+        {
+            "name": "nodeData",
+            "type": [
+                {
+                    "type": "record",
+                    "name": "nodeData",
+                    "namespace": ".nodeData",
+                    "fields": [
+                        {"name": "id", "type": "int"},
+                        {"name": "leftChild", "type": "int"},
+                        {"name": "rightChild", "type": "int"},
+                        {"name": "splitAttribute", "type": "int"},
+                        {"name": "splitValue", "type": "double"},
+                        {"name": "numInstances", "type": "long"},
+                    ],
+                },
+                "null",
+            ],
+        },
+    ],
+}
+
+# The temporary directory's marker: a save writes <path>.__tmp-<hex>, then
+# renames it to <path> in one os.rename.
+_TMP_MARKER = ".__tmp-"
 
 # A tree of depth d takes 2^(d+1)-1 heap slots. Trees the reference grows
 # have depth <= ceil(log2(maxSamples)), under 21 even at maxSamples = 10^6;
@@ -43,6 +89,33 @@ def _check_depth(depth: int) -> None:
             f"the implicit-heap layout would need 2^{depth + 1} slots; "
             "the node table is corrupt or not a valid isolation-forest model"
         )
+
+
+def standard_tree_to_records(feature, threshold, num_instances) -> List[dict]:
+    """One tree's heap arrays -> pre-order node records, with the sentinels
+    of IsolationForestModelReadWrite.scala:36-67."""
+    records: List[dict] = []
+
+    def walk(slot: int) -> int:
+        my_id = len(records)
+        records.append(None)  # reserve the pre-order position
+        if feature[slot] >= 0:
+            left = walk(2 * slot + 1)
+            right = walk(2 * slot + 2)
+            records[my_id] = {
+                "id": my_id, "leftChild": left, "rightChild": right,
+                "splitAttribute": int(feature[slot]), "splitValue": float(threshold[slot]),
+                "numInstances": -1,
+            }
+        else:
+            records[my_id] = {
+                "id": my_id, "leftChild": -1, "rightChild": -1, "splitAttribute": -1,
+                "splitValue": 0.0, "numInstances": int(num_instances[slot]),
+            }
+        return my_id
+
+    walk(0)
+    return records
 
 
 def _assign_heap_slots(records: List[dict]) -> Tuple[dict, int]:
@@ -177,14 +250,135 @@ def _group_trees(records: List[dict], payload_field: str) -> List[List[dict]]:
     return [sorted(trees[t], key=lambda r: r["id"]) for t in tree_ids]
 
 
-def _check_model_dir(path: str, require_success: bool) -> None:
+def _is_partial_dir(path: str) -> bool:
+    return _TMP_MARKER in os.path.basename(os.path.normpath(path))
+
+
+def _clean_stale_partials(path: str) -> None:
+    """Remove the temporary directories killed writers left for ``path``."""
+    parent, base = os.path.split(os.path.abspath(os.path.normpath(path)))
+    if not os.path.isdir(parent):
+        return
+    for name in os.listdir(parent):
+        if name.startswith(base + _TMP_MARKER):
+            stale = os.path.join(parent, name)
+            logger.warning("removing stale partial write %s (left by an interrupted save)", stale)
+            shutil.rmtree(stale, ignore_errors=True)
+
+
+def _begin_atomic_dir(path: str, overwrite: bool) -> str:
+    """Start an atomic directory write: a new empty temporary directory
+    beside ``path``, so the final rename stays on one filesystem."""
+    if os.path.exists(path) and not overwrite:
+        raise FileExistsError(f"path {path} already exists; pass overwrite=True to replace")
+    if overwrite:
+        _clean_stale_partials(path)
+    tmp = f"{os.path.normpath(path)}{_TMP_MARKER}{uuid.uuid4().hex[:12]}"
+    os.makedirs(tmp)
+    return tmp
+
+
+def _commit_atomic_dir(tmp: str, path: str, overwrite: bool) -> None:
+    """Seal the temporary directory with its manifest, then rename it into place."""
+    _manifest.write(tmp)
+    if os.path.exists(path):
+        if not overwrite:  # another writer may have landed first
+            raise FileExistsError(f"path {path} already exists; pass overwrite=True to replace")
+        shutil.rmtree(path)
+    os.rename(tmp, path)
+
+
+@contextlib.contextmanager
+def _atomic_dir(path: str, overwrite: bool):
+    """``with _atomic_dir(path, overwrite) as tmp:`` write into ``tmp``; it
+    is committed on success and removed on any failure, so an aborted save
+    leaves the target untouched and nothing behind."""
+    tmp = _begin_atomic_dir(path, overwrite)
+    try:
+        yield tmp
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    _commit_atomic_dir(tmp, path, overwrite)
+
+
+def _write_metadata(path: str, metadata: dict) -> None:
+    os.makedirs(os.path.join(path, "metadata"), exist_ok=True)
+    with open(os.path.join(path, "metadata", "part-00000"), "w") as fh:
+        fh.write(json.dumps(metadata, separators=(",", ":")))
+        fh.write("\n")
+    open(os.path.join(path, "metadata", "_SUCCESS"), "w").close()
+
+
+def _model_metadata(model, class_name: str) -> dict:
+    return {
+        "class": class_name,
+        "timestamp": int(time.time() * 1000),
+        "sparkVersion": SPARK_VERSION_STRING,
+        "uid": model.uid,
+        "paramMap": model.params.to_param_map(),
+        # extras (IsolationForestModelReadWrite.scala:220-224)
+        "outlierScoreThreshold": model.outlier_score_threshold if model.outlier_score_threshold >= 0 else -1.0,
+        "numSamples": model.num_samples,
+        "numFeatures": model.num_features,
+        "totalNumFeatures": model.total_num_features,
+    }
+
+
+def save_standard_model(model, path: str, overwrite: bool = False) -> None:
+    """Save a standard model atomically in the reference's layout. The
+    forest is copied to the host once and encoded there."""
+    feature, threshold, num_instances = (a.cpu().numpy() for a in model.forest)
+    with _atomic_dir(path, overwrite) as tmp:
+        _write_metadata(tmp, _model_metadata(model, STANDARD_MODEL_CLASS))
+        records = [
+            {"treeID": t, "nodeData": node}
+            for t in range(feature.shape[0])
+            for node in standard_tree_to_records(feature[t], threshold[t], num_instances[t])
+        ]
+        os.makedirs(os.path.join(tmp, "data"))
+        avro.write_container(os.path.join(tmp, "data", f"part-00000-{uuid.uuid4()}-c000.avro"),
+                             STANDARD_SCHEMA, records)
+        open(os.path.join(tmp, "data", "_SUCCESS"), "w").close()
+    logger.info("saved IsolationForestModel (%d trees) to %s", feature.shape[0], path)
+
+
+def save_estimator(estimator, path: str, class_name: str, overwrite: bool = False) -> None:
+    """Save an estimator's params (metadata only, IsolationForest.scala:114-125)."""
+    with _atomic_dir(path, overwrite) as tmp:
+        _write_metadata(tmp, {
+            "class": class_name,
+            "timestamp": int(time.time() * 1000),
+            "sparkVersion": SPARK_VERSION_STRING,
+            "uid": estimator.uid,
+            "paramMap": estimator.params.to_param_map(),
+        })
+
+
+def load_estimator(path: str, params_cls, expected_class: str, require_success: bool = True):
+    """Load an estimator's ``(params, uid)``."""
+    _check_model_dir(path, require_success, expect_data=False)
+    _verify_manifest(path, "auto")
+    metadata = _read_metadata(path)
+    _check_class(metadata, expected_class)
+    return params_cls.from_param_map(metadata["paramMap"]), metadata.get("uid")
+
+
+def _check_model_dir(path: str, require_success: bool, expect_data: bool = True) -> None:
+    """Refuse partial writes and unsealed directories before reading a byte."""
     if not os.path.isdir(path):
         raise FileNotFoundError(f"no model directory at {path}")
+    if _is_partial_dir(path):
+        raise ValueError(
+            f"{path} is a partial write left by an interrupted save (temp "
+            f"marker {_TMP_MARKER!r} in its name): the writer died before "
+            "the atomic rename, so its contents are not trustworthy. Delete "
+            "it and re-save; a save(..., overwrite=True) to the real path "
+            "cleans such leftovers automatically"
+        )
     if require_success:
-        missing = [
-            m for m in ("metadata/_SUCCESS", "data/_SUCCESS")
-            if not os.path.exists(os.path.join(path, *m.split("/")))
-        ]
+        wanted = ["metadata/_SUCCESS"] + (["data/_SUCCESS"] if expect_data else [])
+        missing = [m for m in wanted if not os.path.exists(os.path.join(path, *m.split("/")))]
         if missing:
             raise ValueError(
                 f"{path} is not a sealed model directory (missing "
@@ -193,15 +387,46 @@ def _check_model_dir(path: str, require_success: bool) -> None:
             )
 
 
-def _load_common(path: str, expected_class: str, require_success: bool):
-    """Directory checks and metadata: ``(metadata, total_num_features)``."""
-    _check_model_dir(path, require_success)
-    metadata = _read_metadata(path)
-    if metadata.get("class") != expected_class:
-        raise ValueError(
-            f"metadata class mismatch: expected {expected_class}, "
-            f"found {metadata.get('class')}"
+def _verify_manifest(path: str, verify) -> None:
+    """The manifest gate of a load. ``verify``: ``"auto"`` verifies a
+    present manifest and warns when there is none (the reference's and
+    Spark's layouts), ``True`` requires one, ``False`` skips the check. Any
+    mismatch raises."""
+    if verify is False:
+        return
+    if verify not in ("auto", True):
+        raise ValueError(f"verify must be 'auto', True or False, got {verify!r}")
+    if not _manifest.present(path):
+        if verify is True:
+            raise ValueError(
+                f"{path} has no {_manifest.MANIFEST_NAME} but verify=True was "
+                "requested; pass verify='auto' to accept legacy/Spark-written layouts"
+            )
+        logger.warning(
+            "model directory %s has no %s (legacy/Spark-written layout); "
+            "integrity verification skipped", path, _manifest.MANIFEST_NAME,
         )
+        return
+    issues = _manifest.verify(path)
+    if issues:
+        raise ValueError(
+            f"model directory {path} failed manifest verification: " + "; ".join(issues)
+            + ". The directory is corrupt; restore it from source"
+        )
+
+
+def _check_class(metadata: dict, expected: str) -> None:
+    if metadata.get("class") != expected:
+        raise ValueError(f"metadata class mismatch: expected {expected}, found {metadata.get('class')}")
+
+
+def _load_common(path: str, expected_class: str, require_success: bool, verify="auto"):
+    """Directory checks, the manifest and metadata: ``(metadata,
+    total_num_features)``."""
+    _check_model_dir(path, require_success)
+    _verify_manifest(path, verify)
+    metadata = _read_metadata(path)
+    _check_class(metadata, expected_class)
     if "totalNumFeatures" in metadata:
         return metadata, int(metadata["totalNumFeatures"])
     # legacy layout (IsolationForestModelReadWrite.scala:298-306)
@@ -219,12 +444,13 @@ def _restore_threshold(model, metadata: dict):
     return model
 
 
-def load_standard_model(path: str, device=None, require_success: bool = True):
-    """Load a standard model directory onto ``device`` (default: the card)."""
+def load_standard_model(path: str, device=None, require_success: bool = True, verify="auto"):
+    """Load a standard model directory onto ``device`` (default: the card).
+    ``verify``: the manifest check (:func:`_verify_manifest`)."""
     from ..models.isolation_forest import IsolationForestModel
 
     dev = resolve_device(device)
-    metadata, total_num_features = _load_common(path, STANDARD_MODEL_CLASS, require_success)
+    metadata, total_num_features = _load_common(path, STANDARD_MODEL_CLASS, require_success, verify)
     forest = records_to_standard_forest(_group_trees(_read_data(path), "nodeData"))
     model = IsolationForestModel(
         forest=forest.to(dev),
@@ -237,13 +463,14 @@ def load_standard_model(path: str, device=None, require_success: bool = True):
     return _restore_threshold(model, metadata)
 
 
-def load_extended_model(path: str, device=None, require_success: bool = True):
+def load_extended_model(path: str, device=None, require_success: bool = True, verify="auto"):
     """Load an extended model directory onto ``device`` (default: the card).
-    A model whose paramMap has no ``extensionLevel`` records ``k - 1``."""
+    A model whose paramMap has no ``extensionLevel`` records ``k - 1``.
+    ``verify``: the manifest check (:func:`_verify_manifest`)."""
     from ..models.extended import ExtendedIsolationForestModel
 
     dev = resolve_device(device)
-    metadata, total_num_features = _load_common(path, EXTENDED_MODEL_CLASS, require_success)
+    metadata, total_num_features = _load_common(path, EXTENDED_MODEL_CLASS, require_success, verify)
     params = ExtendedIsolationForestParams.from_param_map(metadata["paramMap"])
     forest = records_to_extended_forest(_group_trees(_read_data(path), "extendedNodeData"))
     model = ExtendedIsolationForestModel(
@@ -258,11 +485,10 @@ def load_extended_model(path: str, device=None, require_success: bool = True):
     return _restore_threshold(model, metadata)
 
 
-def load_model(path: str, device=None, require_success: bool = True):
+def load_model(path: str, device=None, require_success: bool = True, verify="auto"):
     """Load a model directory as the class its metadata names: an
     :class:`ExtendedIsolationForestModel` for the extended class, else an
     :class:`IsolationForestModel` (which refuses any other class)."""
     _check_model_dir(path, require_success)
-    if _read_metadata(path).get("class") == EXTENDED_MODEL_CLASS:
-        return load_extended_model(path, device=device, require_success=require_success)
-    return load_standard_model(path, device=device, require_success=require_success)
+    load = load_extended_model if _read_metadata(path).get("class") == EXTENDED_MODEL_CLASS else load_standard_model
+    return load(path, device=device, require_success=require_success, verify=verify)

@@ -1,6 +1,6 @@
-"""Fitted models."""
+"""The estimator and fitted models."""
 
 from .extended import ExtendedIsolationForestModel
-from .isolation_forest import IsolationForestModel
+from .isolation_forest import IsolationForest, IsolationForestModel
 
-__all__ = ["ExtendedIsolationForestModel", "IsolationForestModel"]
+__all__ = ["ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel"]

@@ -4,8 +4,8 @@
 A fitted extended (EIF) forest that scores, predicts and transforms rows on
 its device. Scoring dispatches on the forest's type
 (ExtendedIsolationForestModel.scala:98-135); only the recorded
-``extension_level`` and loading differ from the standard model. Fit is not
-ported yet: a model comes from :meth:`ExtendedIsolationForestModel.load` or
+``extension_level`` and loading differ from the standard model. EIF fit is
+not ported yet: a model comes from :meth:`ExtendedIsolationForestModel.load` or
 from arrays (:func:`isoforest_tpu_torch.io.interop.extended_model_from_arrays`).
 """
 
@@ -46,9 +46,12 @@ class ExtendedIsolationForestModel(IsolationForestModel):
         self.extension_level = int(extension_level)
 
     @classmethod
-    def load(cls, path: str, device=None, require_success: bool = True) -> "ExtendedIsolationForestModel":
+    def load(
+        cls, path: str, device=None, require_success: bool = True, verify="auto"
+    ) -> "ExtendedIsolationForestModel":
         """Load an extended model directory saved in the reference layout
-        onto ``device`` (default: the card)."""
+        onto ``device`` (default: the card); ``verify`` checks its manifest
+        (``"auto"``: when there is one)."""
         from ..io.persistence import load_extended_model
 
-        return load_extended_model(path, device=device, require_success=require_success)
+        return load_extended_model(path, device=device, require_success=require_success, verify=verify)

@@ -21,12 +21,11 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..utils.device import resolve_device
 from ..utils.math import fma_f32, score_from_path_length
-from ..utils.validation import check_non_finite, validate_feature_vector_size
+from ..utils.validation import extract_features, validate_feature_vector_size
 from . import dense, ext_dense, ext_walk, walk
 from .ext_growth import ExtendedForest
 from .scoring_layout import PackedExtendedLayout, StandardLayout, pack_extended, pack_standard
@@ -152,8 +151,9 @@ def score_matrix(
     """Outlier scores ``2^(-E[h]/c(num_samples))`` of an ``[N, F]`` matrix, ``f32[N]``.
 
     ``forest``: a :class:`StandardForest` or an :class:`ExtendedForest`.
-    ``X`` (numpy array or tensor) is moved to ``device`` (default: the card;
-    the forest is moved there too). ``strategy``: ``"walk"``, ``"dense"``
+    ``X`` (tensor, array or DataFrame) is converted, checked and moved to
+    ``device`` by :func:`~isoforest_tpu_torch.utils.validation.extract_features`
+    (default: the card; the forest is moved there too). ``strategy``: ``"walk"``, ``"dense"``
     (trees up to height ``dense.DENSE_MAX_HEIGHT``) or ``"auto"``.
     ``expected_features`` (the model's training width) makes a wrong-width
     ``X`` a ValueError; a matrix narrower than the forest's highest split
@@ -163,12 +163,7 @@ def score_matrix(
     """
     dev = resolve_device(device)
     strategy = _resolve_strategy(strategy)
-    if isinstance(X, np.ndarray):
-        X = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32))
-    X = torch.as_tensor(X).to(dev, torch.float32).contiguous()
-    if X.dim() != 2:
-        raise ValueError(f"expected a 2-D [num_rows, num_features] matrix, got shape {tuple(X.shape)}")
-    check_non_finite(X, nonfinite)
+    X, _ = extract_features(X, nonfinite=nonfinite, device=dev)
     cache = {} if cache is None else cache
     if forest.device != dev:
         forest = forest.to(dev)

@@ -1,8 +1,10 @@
-"""Seeded synthetic heap forests and rows, for the port's tests and ``chip_smoke.py``.
+"""Seeded synthetic heap forests and rows, and growth's invariants, for the
+port's tests and ``chip_smoke.py``.
 
 numpy only: the arrays feed both :func:`isoforest_tpu_torch.io.interop.forest_from_arrays`
 (or ``extended_forest_from_arrays``) and the JAX package's ``StandardForest``
-(or ``ExtendedForest``), so the two packages walk the same forest.
+(or ``ExtendedForest``), so the two packages walk the same forest; and
+:func:`growth_invariant_errors` checks a forest either package grew.
 """
 
 from __future__ import annotations
@@ -104,3 +106,46 @@ def random_extended_forest(
     for q in range(k):  # d = fma(p_q, w_q, d), each step through float64
         offset = (points[..., q].astype(np.float64) * weights[..., q] + offset).astype(np.float32)
     return indices, weights, offset, num_instances
+
+
+def growth_invariant_errors(feature, threshold, num_instances, X, num_samples, allowed_features=None) -> list:
+    """What a grown standard forest breaks of growth's invariants (none: an
+    empty list), checked on numpy copies: heap structure (disjoint roles,
+    the root exists, an internal slot has both children, a leaf or hole
+    none), leaf counts summing to ``num_samples`` per tree, no constant
+    feature of ``X`` chosen, every threshold within its feature's range in
+    ``X``, and each tree's features within ``allowed_features[t]`` when
+    given (its feature subset)."""
+    feature, threshold, num_instances, X = (np.asarray(a) for a in (feature, threshold, num_instances, X))
+    errors = []
+    internal, leaf = feature >= 0, num_instances >= 0
+    exists = internal | leaf
+    m = feature.shape[1]
+    if np.any(internal & leaf):
+        errors.append("a slot is both internal and a leaf")
+    if not np.all(exists[:, 0]):
+        errors.append("a tree has no root")
+    parents = np.arange((m - 1) // 2)
+    kids = np.stack([exists[:, 2 * parents + 1], exists[:, 2 * parents + 2]])
+    if np.any(internal[:, parents] & ~kids.all(axis=0)):
+        errors.append("an internal slot lacks a child")
+    if np.any(~internal[:, parents] & kids.any(axis=0)):
+        errors.append("a leaf or hole has a child")
+    sums = np.where(leaf, num_instances, 0).sum(axis=1)
+    if not np.all(sums == num_samples):
+        errors.append(f"leaf counts sum to {sorted(set(sums.tolist()))}, not {num_samples}")
+    lo, hi = X.min(axis=0), X.max(axis=0)
+    chosen = np.unique(feature[internal])
+    constant = chosen[lo[chosen] == hi[chosen]]
+    if constant.size:
+        errors.append(f"constant features chosen: {constant.tolist()}")
+    f = feature.clip(min=0)
+    if np.any(internal & ((threshold < lo[f]) | (threshold > hi[f]))):
+        errors.append("a threshold lies outside its feature's range")
+    if allowed_features is not None:
+        allowed = np.asarray(allowed_features)
+        for t in range(feature.shape[0]):
+            if not np.isin(feature[t][internal[t]], allowed[t]).all():
+                errors.append(f"tree {t} splits outside its feature subset")
+                break
+    return errors

@@ -1,6 +1,7 @@
 """Hyper-parameters of the standard and extended forests, with the reference's names,
 defaults and validators (``isoforest_tpu/utils/params.py``;
-``core/IsolationForestParamsBase.scala:8-110``).
+``core/IsolationForestParamsBase.scala:8-110``), and their fit-time
+resolution of fractions and counts (``core/SharedTrainLogic.scala:33-77``).
 
 Scoring reads none of them; a loaded model keeps them so its metadata
 round-trips.
@@ -9,6 +10,7 @@ round-trips.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -63,6 +65,9 @@ class IsolationForestParams:
         if not isinstance(self.bootstrap, bool):
             raise ValueError(f"bootstrap must be a bool, got {self.bootstrap!r}")
 
+    def replace(self, **kw) -> "IsolationForestParams":
+        return dataclasses.replace(self, **kw)
+
     def to_param_map(self) -> dict:
         """camelCase paramMap dict as persisted in model metadata JSON."""
         out = {json_name: getattr(self, field) for field, json_name in _PARAM_JSON_NAMES.items()}
@@ -116,6 +121,60 @@ class ExtendedIsolationForestParams(IsolationForestParams):
         base = IsolationForestParams.from_param_map(param_map)
         ext = param_map.get("extensionLevel")
         return cls(**dataclasses.asdict(base), extension_level=None if ext is None else int(ext))
+
+
+@dataclass(frozen=True)
+class ResolvedParams:
+    """Fit-time counts (core/Utils.scala:12-17): the per-tree sample count
+    and feature-subset size, and the data's totals."""
+
+    num_samples: int
+    num_features: int
+    total_num_samples: int
+    total_num_features: int
+
+
+def resolve_params(
+    params: IsolationForestParams, total_num_features: int, total_num_samples: int
+) -> ResolvedParams:
+    """Resolve maxSamples/maxFeatures to counts (SharedTrainLogic.scala:33-77):
+    a value above 1.0 is an absolute count (floored), one at or below 1.0 a
+    fraction of the total (floored). Requires ``num_features > 0`` and
+    ``num_samples >= 2`` (the reference's ``maxSamples -> 1`` throw); the
+    sample count is capped at the dataset size, since every tree takes
+    exactly ``num_samples`` rows."""
+    if total_num_features <= 0:
+        raise ValueError(f"dataset has no features (totalNumFeatures={total_num_features})")
+    if total_num_samples <= 0:
+        raise ValueError(f"dataset is empty (totalNumSamples={total_num_samples})")
+    if params.max_features > 1.0:
+        num_features = int(math.floor(params.max_features))
+    else:
+        num_features = int(math.floor(params.max_features * total_num_features))
+    if params.max_samples > 1.0:
+        num_samples = int(math.floor(params.max_samples))
+    else:
+        num_samples = int(math.floor(params.max_samples * total_num_samples))
+    if num_features <= 0:
+        raise ValueError(
+            f"resolved numFeatures must be > 0 (maxFeatures={params.max_features}, "
+            f"totalNumFeatures={total_num_features})"
+        )
+    if num_features > total_num_features:
+        raise ValueError(
+            f"resolved numFeatures={num_features} exceeds totalNumFeatures={total_num_features}"
+        )
+    if num_samples < 2:
+        raise ValueError(
+            f"resolved numSamples must be >= 2 (maxSamples={params.max_samples}, "
+            f"totalNumSamples={total_num_samples})"
+        )
+    return ResolvedParams(
+        num_samples=min(num_samples, total_num_samples),
+        num_features=num_features,
+        total_num_samples=total_num_samples,
+        total_num_features=total_num_features,
+    )
 
 
 def resolve_extension_level(extension_level: Optional[int], num_features: int) -> int:

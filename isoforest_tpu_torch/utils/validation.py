@@ -1,14 +1,19 @@
-"""Input checks of the scoring path (``isoforest_tpu/utils/validation.py``).
+"""Input checks of fit and scoring (``isoforest_tpu/utils/validation.py``).
 
-The NaN/inf policy and the scoring-time width check of the reference
-(``core/Utils.scala:67-72``; ``UnknownTotalNumFeatures = -1``,
-IsolationForestModel.scala:171), on tensors.
+The reference's schema checks (``core/Utils.scala:35-72``): the features
+column is vector-valued, output columns must not exist yet, and at scoring
+time the width matches the training width when it is known
+(``UnknownTotalNumFeatures = -1``, IsolationForestModel.scala:171); and the
+NaN/inf policy. Inputs are tensors, arrays or pandas DataFrames, the
+Dataset's analogue.
 """
 
 from __future__ import annotations
 
 import logging
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 UNKNOWN_TOTAL_NUM_FEATURES = -1
@@ -16,6 +21,57 @@ UNKNOWN_TOTAL_NUM_FEATURES = -1
 NONFINITE_POLICIES = ("warn", "raise", "allow")
 
 logger = logging.getLogger("isoforest_tpu_torch")
+
+
+def extract_features(
+    data,
+    features_col: str = "features",
+    output_cols: Tuple[str, ...] = (),
+    nonfinite: str = "warn",
+    device=None,
+) -> Tuple[torch.Tensor, Optional[object]]:
+    """Normalise input to a float32 ``[N, F]`` tensor on ``device`` (default:
+    where a tensor already is, else the CPU).
+
+    Accepts an ``[N, F]`` tensor or array-like, or a pandas DataFrame whose
+    ``features_col`` holds one vector per row (core/Utils.scala:35-65).
+    Returns ``(X, frame_or_None)``; the frame comes back so ``transform``
+    can append its columns. Refuses a frame that already has one of
+    ``output_cols`` (Utils.scala:47-58), then applies the ``nonfinite``
+    policy on ``X``'s device.
+    """
+    pd = None
+    if type(data).__module__.startswith("pandas"):  # no import attempt for tensors
+        try:
+            import pandas as pd
+        except ImportError:
+            pd = None
+    frame = None
+    if pd is not None and isinstance(data, pd.DataFrame):
+        if features_col not in data.columns:
+            raise ValueError(
+                f"features column {features_col!r} not found in input DataFrame "
+                f"(columns: {list(data.columns)})"
+            )
+        for col in output_cols:
+            if col in data.columns:
+                raise ValueError(f"output column {col!r} already exists in the input DataFrame")
+        first = data[features_col].iloc[0] if len(data) else None
+        if first is not None and np.ndim(first) == 0:
+            raise ValueError(
+                f"features column {features_col!r} must be vector-valued "
+                f"(each cell an array of floats), got scalar {type(first).__name__}"
+            )
+        frame = data
+        data = np.stack(data[features_col].to_numpy()) if len(data) else np.zeros((0, 0))
+    if isinstance(data, np.ndarray):
+        data = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32))
+    X = torch.as_tensor(data)
+    X = X.to(X.device if device is None else device, torch.float32).contiguous()
+    if X.dim() != 2:
+        raise ValueError(f"expected a 2-D [num_rows, num_features] matrix, got shape {tuple(X.shape)}")
+    check_non_finite(X, nonfinite)
+    return X, frame
 
 
 def check_non_finite(X: torch.Tensor, policy: str = "warn") -> None:

@@ -15,6 +15,7 @@ import torch
 from isoforest_tpu.io import avro as javro
 from isoforest_tpu.io import persistence as jpersistence
 from isoforest_tpu.models import ExtendedIsolationForestModel as JaxModel
+from isoforest_tpu.resilience import manifest as jmanifest
 from isoforest_tpu.ops.ext_growth import ExtendedForest as JaxForest
 from isoforest_tpu.utils.params import ExtendedIsolationForestParams as JaxParams
 from isoforest_tpu.utils.params import resolve_extension_level as jax_resolve
@@ -100,6 +101,7 @@ def test_codecs_read_equal(tmp_path, codec):
     schema, records = javro.read_container(str(data_file))
     data_file.unlink()
     javro.write_container(str(model_dir / "data" / "part-00000-x-c000.avro"), schema, records, codec=codec)
+    jmanifest.write(str(model_dir))  # sealed anew, as a save would
     port = load_model(str(model_dir), device="cpu")
     _assert_same_forest(port, JaxModel.load(str(FIXTURE)))
 
@@ -111,6 +113,7 @@ def test_missing_extension_level_falls_back_to_k_minus_1(tmp_path):
     doc = json.loads(meta.read_text())
     del doc["paramMap"]["extensionLevel"]
     meta.write_text(json.dumps(doc) + "\n")
+    jmanifest.write(str(model_dir))  # sealed anew, as a save would
     port = load_model(str(model_dir), device="cpu")
     assert port.extension_level == 5 and port.params.extension_level is None
 

@@ -17,6 +17,7 @@ import torch
 from isoforest_tpu.io import avro as javro
 from isoforest_tpu.io import persistence as jpersistence
 from isoforest_tpu.models import IsolationForestModel as JaxModel
+from isoforest_tpu.resilience import manifest as jmanifest
 from isoforest_tpu.ops.tree_growth import StandardForest as JaxForest
 from isoforest_tpu.utils.params import IsolationForestParams as JaxParams
 from isoforest_tpu_torch import IsolationForestModel, load_model
@@ -80,6 +81,7 @@ def test_codecs_read_equal(tmp_path, codec):
     schema, records = javro.read_container(str(data_file))
     data_file.unlink()
     javro.write_container(str(model_dir / "data" / "part-00000-x-c000.avro"), schema, records, codec=codec)
+    jmanifest.write(str(model_dir))  # sealed anew, as a save would
     _, port_records = tavro.read_container(str(model_dir / "data" / "part-00000-x-c000.avro"))
     assert port_records == records
     port = load_model(str(model_dir), device="cpu")
@@ -176,6 +178,7 @@ def test_directory_checks(tmp_path):
     doc = json.loads(meta.read_text())
     doc["class"] = jpersistence.EXTENDED_MODEL_CLASS
     meta.write_text(json.dumps(doc) + "\n")
+    jmanifest.write(str(unsealed))  # sealed anew, as a save would
     # load_model follows the metadata class, so the extended loader finds a
     # standard node table; the standard loader refuses the class outright
     with pytest.raises(ValueError, match="does not match the metadata class"):
@@ -184,6 +187,7 @@ def test_directory_checks(tmp_path):
         IsolationForestModel.load(str(unsealed), device="cpu", require_success=False)
     doc["class"] = "com.example.NotAnIsolationForest"
     meta.write_text(json.dumps(doc) + "\n")
+    jmanifest.write(str(unsealed))
     with pytest.raises(ValueError, match="metadata class mismatch"):
         load_model(str(unsealed), device="cpu", require_success=False)
 
@@ -195,4 +199,5 @@ def test_legacy_metadata_without_width(tmp_path):
     doc = json.loads(meta.read_text())
     del doc["totalNumFeatures"]
     meta.write_text(json.dumps(doc) + "\n")
+    jmanifest.write(str(legacy))  # sealed anew, as a save would
     assert load_model(str(legacy), device="cpu").total_num_features == -1
