@@ -95,9 +95,39 @@ Then fit of the standard forest, on the card:
     the permutation sampler, subsample_trees 0.5), each held to growth's
     invariants.
 
+Then fit of the extended forest, on the card:
+
+16. eif_fit_parity: ``ExtendedIsolationForest(contamination=0.02,
+    random_seed=1).fit`` of the mammography rows, held to the committed EIF
+    fixture (``mammography_eif``) node for node: the count of nodes whose
+    hyperplane indices or leaf counts differ, each differing subtree
+    explained by the margin that flipped it (a Gumbel top-k near-tie within
+    4 ulps, or a parent whose rows come within 4 ulps of its offset), and
+    weights and offsets within 2 ulps elsewhere; the threshold within 2e-6
+    of the fixture's at rank error 0, the walk and dense scores within 2e-6
+    of ``jax_walk_scores.npy`` / ``jax_pallas_scores.npy`` where the forest
+    is equal, AUROC within 1e-3 of the fixture's; the walk kernel and the
+    sparse kernel on the fitted forest equal to their plain versions, bulk
+    and small-batch; a save, reload and rescore that gives equal scores;
+17. eif_fit_full_size: 100 trees on the 1M rows (k = 6) with the
+    ``ext_walk_sum`` counter set to 0 just before and read just after (the
+    threshold pass must launch it), the threshold at rank error 0, the walk
+    kernel against its plain version on the first 65,536 rows, fit and part
+    times (bag, growth, threshold pass, the walk kernel on the fitted
+    forest), torch.profiler around one warm fit;
+18. eif_fit_high_dim: a fully extended fit of 100,000 seeded rows x 274 (k
+    = 274 over five chunks), its time and peak memory, growth's
+    invariants, the walk kernel and the dense-table kernel (its ``dense``
+    scoring) against their plain versions on 4,096 rows;
+19. eif_fit_edges: small seeded EIF fits (extension level 0, maxFeatures
+    0.5, a constant column, all-constant rows, contamination 0, bootstrap,
+    N = 300 with S = 256, subsample_trees 0.5), each held to growth's
+    invariants.
+
 Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
-with its launches in the 1M-row fit, ``fit_launches``), the ``nvidia-smi``
-name and power-limit line, and last ``{"ok": true, "device": {...}}``. Any
+with its launches in the 1M-row fit and ``ext_walk_sum`` with its launches
+in the 1M-row EIF fit, ``fit_launches``), the ``nvidia-smi`` name and
+power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises and exits non-zero. With no CUDA card, or without the
 package beside it, the script prints no result and exits 2.
 """
@@ -124,6 +154,7 @@ PEAK_F32_OPS_PER_S = 67e12
 
 FULL_ROWS = 1_000_000
 HIGH_DIM_ROWS = 65_536  # the F = 274 dense-table forest: rows cut from 1M for time
+HIGH_DIM_FIT_ROWS = 100_000  # the F = 274 fits' seeded rows
 SEED = 0
 
 
@@ -775,6 +806,244 @@ def fit_phases(dev, X_m, y_m, X_big, fixture_model) -> dict:
     return fit_launches
 
 
+def eif_fit_phases(dev, X_m, y_m, X_big) -> int:
+    """Phases 16-19 (fit of the extended forest); returns the threshold
+    pass's ``ext_walk_sum`` launches in the 1M-row EIF fit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import ExtendedIsolationForest, load_model
+    from isoforest_tpu_torch.models.isolation_forest import _compute_and_set_threshold
+    from isoforest_tpu_torch.ops import bagging, ext_dense, ext_growth, ext_path, ext_walk, prng
+    from isoforest_tpu_torch.ops.level_window import chunk_features
+    from isoforest_tpu_torch.ops.quantile import quantile_rank_error
+    from isoforest_tpu_torch.testing import extended_growth_invariant_errors
+    from isoforest_tpu_torch.utils.math import height_limit
+
+    def invariants(model, X, allowed=None) -> None:
+        errors = extended_growth_invariant_errors(*(a.cpu().numpy() for a in model.forest), X, model.num_samples,
+                                                  allowed)
+        require(not errors, f"EIF growth invariants: {errors}")
+
+    def path_errors(name, forest, X, small_rows=4096) -> dict:
+        """Path kernel ``name`` on a fitted forest against its plain version:
+        the bulk launch over ``X``, the small-batch launch over its first
+        ``small_rows`` rows. The plain walk goes 32 trees side by side, to the
+        same sum in tree order as one tree at a time."""
+        if name == "ext_walk_sum":
+            tables = ext_walk.walk_tables_extended(forest)
+            want = ext_path.path_sum_plain(X, tables, paired=1 < forest.k <= ext_path.PAIRED_MAX_K, mean=False,
+                                           tree_parallel=True)
+        else:
+            tables = ext_dense.sparse_path_records(forest)
+            want = ext_dense.ext_sparse_mean_plain(X, ext_dense.sparse_hyperplane_tables(forest))
+        bulk = ext_path.launch(name, X, tables, tree_parallel=False)
+        small = ext_path.launch(name, X[:small_rows], tables, tree_parallel=True)
+        return {"bulk": float((bulk - want).abs().max()), "small_batch": float((small - want[:small_rows]).abs().max())}
+
+    def fit_keys(seed, n_rows, n_trees, n_feats_total, n_feats, n_samples):
+        """The fit's bags, feature subsets and per-tree growth keys, re-derived."""
+        k_bag, k_feat, k_grow = prng.split(prng.PRNGKey(seed, device=dev), 3)
+        return (bagging.bagged_indices(k_bag, n_rows, n_samples, n_trees, False),
+                bagging.feature_subsets(k_feat, n_feats_total, n_feats, n_trees),
+                bagging.per_tree_keys(k_grow, n_trees))
+
+    phases_t0 = time.perf_counter()
+    # 16. eif_fit_parity: the committed EIF fixture's own fit, on the card
+    fixture = load_model(str(EIF_FIXTURE / "model"))
+    est = ExtendedIsolationForest(contamination=0.02, random_seed=1)
+    model, first_fit_s = synced(lambda: est.fit(X_m))
+    _, warm_fit_s = synced(lambda: est.fit(X_m))
+    require(model.device.type == "cuda" and model.extension_level == 5, f"EIF fit on {model.device}")
+    got = [a.cpu().numpy() for a in model.forest]
+    want = [a.cpu().numpy() for a in fixture.forest]
+    require(all(g.shape == w.shape for g, w in zip(got, want)), "EIF forest shapes differ from the fixture's")
+    differ = (got[0] != want[0]).any(axis=2) | (got[3] != want[3])
+    value_ulps = np.maximum(
+        np.abs(got[1].view(np.int32).astype(np.int64) - want[1].view(np.int32)).max(axis=2),
+        np.abs(got[2].view(np.int32).astype(np.int64) - want[2].view(np.int32)))
+    value_ulps[differ] = 0
+    h = height_limit(model.num_samples)
+    bag, fidx, tree_keys = fit_keys(1, len(X_m), 100, X_m.shape[1], model.num_features, model.num_samples)
+    geom = chunk_features(torch.zeros(1, model.num_features))
+    Xm_dev = torch.from_numpy(X_m).to(dev)
+    idx_t, w_t, off_t = model.forest.indices.long(), model.forest.weights, model.forest.offset
+    explained = []
+    for t, s in zip(*np.nonzero(differ)):
+        if s > 0 and differ[t, (s - 1) // 2]:
+            continue  # inside a differing subtree: its root explains it
+        if (got[0][t, s] != want[0][t, s]).any() and got[0][t, s, 0] >= 0 and want[0][t, s, 0] >= 0:
+            # another subspace on the same samples: the Gumbel top-k's k-th
+            # and (k+1)-th draws of the port must tie within a few ulps
+            level, row = int(np.log2(s + 1)), int(s - (2 ** int(np.log2(s + 1)) - 1))
+            level_key = prng.split(tree_keys[t : t + 1], h + 1)[:, level]
+            chunk_gumbel, _, _ = ext_growth._level_draws(level_key, level, 2**h, geom.chunk, geom.n_chunks,
+                                                         model.forest.k)
+            g = torch.cat([chunk_gumbel(c)[0, row] for c in range(geom.n_chunks)])[: model.num_features]
+            top = torch.sort(g, descending=True).values.cpu().numpy()
+            kth = top[model.forest.k - 1 : model.forest.k + 1]
+            unit = float(np.spacing(np.float32(max(np.abs(kth).max(), 1.0))))
+            ulps = float(abs(kth[0] - kth[1]) / unit)
+            explained.append({"tree": int(t), "slot": int(s), "why": "gumbel_top_k_near_tie",
+                              "draws": kth.tolist(), "ulps_apart": ulps})
+            require(ulps <= 4, f"tree {t} slot {s}: subspace flip with draws {ulps} ulps apart")
+            continue
+        # other samples reached this slot: its parent routed a row by a hair
+        parent = (s - 1) // 2
+        require(s > 0, f"tree {t}: the root differs with the same subspace")
+        x = Xm_dev[bag[t].long()]
+        node = torch.zeros(x.shape[0], dtype=torch.long, device=dev)
+        for _ in range(int(np.log2(parent + 1))):
+            inside = idx_t[t, node, 0] >= 0
+            dot = ext_growth.row_dot(x.gather(1, idx_t[t, node].clamp(min=0)), w_t[t, node], "dot")
+            node = torch.where(inside, 2 * node + 1 + (dot >= off_t[t, node]).long(), node)
+        rows = x[node == parent]
+        dots = ext_growth.row_dot(rows.gather(1, idx_t[t, parent].clamp(min=0).expand(rows.shape[0], -1)),
+                                  w_t[t, parent].expand(rows.shape[0], -1), "dot")
+        off = float(off_t[t, parent])
+        margin = float((dots - off).abs().min()) if rows.shape[0] else float("inf")
+        ulps = margin / float(np.spacing(np.float32(max(abs(off), 1.0))))
+        explained.append({"tree": int(t), "slot": int(s), "why": "routing_margin_at_parent",
+                          "parent_offset": off, "min_abs_dot_minus_offset": margin, "ulps": ulps})
+        require(ulps <= 4, f"tree {t} slot {s}: parent {parent} routes no row within 4 ulps of its offset")
+    require(int(value_ulps.max()) <= 2, f"EIF weights/offsets {int(value_ulps.max())} ulps from the fixture's")
+    equal = not differ.any()
+    thr = model.outlier_score_threshold
+    parity = {"phase": "eif_fit_parity", "rows": len(X_m), "trees": model.forest.num_trees, "k": model.forest.k,
+              "heap_slots": model.forest.max_nodes, "first_fit_s": first_fit_s, "warm_fit_s": warm_fit_s,
+              "differing_nodes": int(differ.sum()), "differing_subtrees": explained,
+              "nodes_with_other_weight_or_offset_bits": int((value_ulps > 0).sum()),
+              "threshold": thr, "fixture_threshold": fixture.outlier_score_threshold,
+              "rank_error": quantile_rank_error(model.score(X_m), thr, 1.0 - 0.02)}
+    require(abs(thr - 0.6251140236854553) <= 2e-6, f"fitted EIF threshold {thr}")
+    require(parity["rank_error"] == 0, f"EIF threshold rank error {parity['rank_error']}")
+    gather_auc = auroc(np.load(EIF_FIXTURE / "jax_scores.npy"), y_m)
+    for strategy, own_file in (("walk", "jax_walk_scores.npy"), ("dense", "jax_pallas_scores.npy")):
+        s = model.score(X_m, strategy=strategy).cpu().numpy()
+        err = float(np.abs(s - np.load(EIF_FIXTURE / own_file)).max())
+        auc = auroc(s, y_m)
+        parity[strategy] = {"counterpart": own_file, "max_abs_err": err, "auroc": auc}
+        require(np.isfinite(s).all() and s.shape == (len(X_m),), f"EIF fit {strategy}: bad scores")
+        require(not equal or err <= 2e-6, f"EIF fit {strategy}: {err} from {own_file}")
+        require(abs(auc - gather_auc) <= 1e-3, f"EIF fit {strategy}: AUROC {auc} vs the fixture's {gather_auc}")
+    parity["kernel_vs_plain"] = {name: path_errors(name, model.forest, Xm_dev)
+                                 for name in ("ext_walk_sum", "ext_sparse_mean")}
+    require(all(v == 0.0 for e in parity["kernel_vs_plain"].values() for v in e.values()),
+            f"a path kernel on the fitted EIF: {parity['kernel_vs_plain']}")
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = str(pathlib.Path(tmp) / "model")
+        _, parity["save_s"] = synced(lambda: model.save(path))
+        loaded, parity["load_s"] = synced(lambda: load_model(path))
+        parity["reloaded_scores_equal"] = bool(torch.equal(loaded.score(X_m), model.score(X_m)))
+        require(parity["reloaded_scores_equal"] and loaded.outlier_score_threshold == thr
+                and loaded.extension_level == 5, "the saved and reloaded EIF scores otherwise")
+    emit(parity)
+
+    # 17. eif_fit_full_size: 100 trees on the 1M rows at k = 6, the
+    # threshold pass scoring all of them through ext_walk_sum
+    ext_path.launches["ext_walk_sum"] = 0
+    big, big_fit_s = synced(lambda: est.fit(X_big))
+    fit_launches = ext_path.launches["ext_walk_sum"]
+    require(fit_launches >= 1, "the 1M-row EIF fit's threshold pass did not launch ext_walk_sum")
+    Xd = torch.from_numpy(X_big).to(dev)
+    invariants(big, X_big)
+    big_rank_error = quantile_rank_error(big.score(Xd), big.outlier_score_threshold, 1.0 - 0.02)
+    require(big_rank_error == 0, f"1M-row EIF threshold rank error {big_rank_error}")
+    big_err = path_errors("ext_walk_sum", big.forest, Xd[:65_536])
+    require(all(v == 0.0 for v in big_err.values()), f"ext_walk_sum on the 1M-row EIF: {big_err}")
+    bag_b, fidx_b, keys_b = fit_keys(1, FULL_ROWS, 100, X_big.shape[1], X_big.shape[1], 256)
+    k_bag = prng.split(prng.PRNGKey(1, device=dev), 3)[0]
+    wt_big = ext_walk.walk_tables_extended(big.forest)
+    parts_ms = {
+        "bag_ms": time_ms(lambda: bagging.bagged_indices(k_bag, FULL_ROWS, 256, 100, False), reps=3, warmup=1),
+        "growth_ms": time_ms(lambda: ext_growth.grow_extended_forest(keys_b, Xd, bag_b, fidx_b, 8, 5),
+                             reps=3, warmup=1),
+        "threshold_pass_ms": time_ms(lambda: _compute_and_set_threshold(big, Xd), reps=3, warmup=1),
+        "fit_from_device_rows_ms": time_ms(lambda: est.fit(Xd), reps=3, warmup=1),
+        "ext_walk_sum_ms_1m_rows": time_ms(lambda: ext_walk.ext_walk_sum(Xd, wt_big), inner=10),
+    }
+    fit_profile = profile_call(lambda: est.fit(Xd))
+    emit({"phase": "eif_fit_full_size", "rows": FULL_ROWS, "features": X_big.shape[1], "trees": 100,
+          "k": big.forest.k, "launches": {"ext_walk_sum": fit_launches}, "fit_s": big_fit_s, **parts_ms,
+          "fit_profile": fit_profile, "threshold": big.outlier_score_threshold, "rank_error": big_rank_error,
+          "walk_records": int(wt_big.records.shape[0]), "ext_walk_sum_max_abs_err_65536": big_err})
+
+    # 18. eif_fit_high_dim: 100,000 seeded rows x 274, fully extended (k =
+    # 274 over five 64-feature chunks, a constant block in the second)
+    rng = np.random.default_rng(SEED + 2)
+    X_h = rng.normal(size=(HIGH_DIM_FIT_ROWS, 274)).astype(np.float32)
+    X_h[:, 70:80] = 1.5
+    wide_est = ExtendedIsolationForest(contamination=0.02, random_seed=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    wide, wide_fit_s = synced(lambda: wide_est.fit(X_h))
+    peak_bytes = torch.cuda.max_memory_allocated() - base_bytes
+    _, wide_warm_fit_s = synced(lambda: wide_est.fit(X_h))
+    require(wide.forest.k == 274, f"the F = 274 EIF has k = {wide.forest.k}")
+    invariants(wide, X_h)
+    Xh = torch.from_numpy(X_h[:4096]).to(dev)
+    wide_walk_err = path_errors("ext_walk_sum", wide.forest, Xh)
+    dt = ext_dense.dense_hyperplane_table(wide.forest)
+    ext_dense.ext_dense_mean.launches = 0
+    dense_scores = wide.score(Xh, strategy="dense")
+    require(ext_dense.ext_dense_mean.launches >= 1 and bool(torch.isfinite(dense_scores).all()),
+            "the F = 274 EIF's dense scoring did not launch ext_dense_mean")
+    dense_err = float((ext_dense.ext_dense_mean(Xh, dt) - ext_dense.ext_dense_mean_plain(Xh, dt)).abs().max())
+    require(all(v == 0.0 for v in wide_walk_err.values()) and dense_err == 0.0,
+            f"K3/K5 on the F = 274 EIF: {wide_walk_err}, {dense_err}")
+    emit({"phase": "eif_fit_high_dim", "rows": X_h.shape[0], "features": 274, "k": wide.forest.k, "trees": 100,
+          "fit_s": wide_fit_s, "warm_fit_s": wide_warm_fit_s, "peak_allocated_bytes": peak_bytes,
+          "heap_slots": wide.forest.max_nodes, "threshold": wide.outlier_score_threshold,
+          "ext_walk_sum_max_abs_err_4096": wide_walk_err, "ext_dense_mean_max_abs_err_4096": dense_err})
+
+    # 19. eif_fit_edges: small seeded fits, each held to growth's invariants
+    cases = {
+        "extension_level_0": ({"extension_level": 0}, None),
+        "max_features_half": ({"max_features": 0.5}, None),
+        "constant_column": ({}, "constant_column"),
+        "all_constant": ({}, "all_constant"),
+        "zero_contamination": ({"contamination": 0.0}, None),
+        "bootstrap": ({"bootstrap": True}, None),
+        "permutation_300x256": ({"max_samples": 256.0}, "n300"),
+        "subsample_trees_half": ({}, "subsample"),
+    }
+    edges = []
+    for name, (kw, data_kind) in cases.items():
+        X_e = rng.normal(size=(300 if data_kind == "n300" else 2000, 6)).astype(np.float32)
+        if data_kind == "constant_column":
+            X_e[:, 2] = 3.0
+        elif data_kind == "all_constant":
+            X_e[:] = 1.0
+        params = {"num_estimators": 20, "max_samples": 64.0, "contamination": 0.05, "random_seed": 3, **kw}
+        m = ExtendedIsolationForest(**params).fit(X_e, subsample_trees=0.5 if data_kind == "subsample" else None)
+        _, fidx_e, _ = fit_keys(3, len(X_e), m.forest.num_trees, 6, m.num_features, m.num_samples)
+        invariants(m, X_e, fidx_e.cpu().numpy())
+        row = {"case": name, "trees": m.forest.num_trees, "num_samples": m.num_samples, "k": m.forest.k,
+               "num_features": m.num_features, "heap_slots": m.forest.max_nodes,
+               "threshold": m.outlier_score_threshold}
+        if name == "extension_level_0":
+            w0 = m.forest.weights[..., 0][m.forest.is_internal]
+            require(m.forest.k == 1 and bool((w0.abs() == 1.0).all()), "extension level 0 is not axis-aligned")
+        if data_kind == "all_constant":
+            # every row ties every offset and goes right: a chain of empty left leaves
+            ni = m.forest.num_instances.cpu().numpy()
+            row["empty_leaves"] = int((ni == 0).sum())
+            require(row["empty_leaves"] == 20 * height_limit(64) and bool((ni[:, 2**7 - 2] == 64).all()),
+                    "all-constant data did not grow a chain of empty left leaves")
+        if name == "zero_contamination":
+            require(m.outlier_score_threshold == -1.0, "contamination 0 set a threshold")
+        if data_kind == "subsample":
+            require(m.forest.num_trees == 10 and m.params.num_estimators == 10, "subsample_trees=0.5 of 20")
+        edges.append(row)
+    emit({"phase": "eif_fit_edges", "cases": edges, "eif_fit_phases_s": time.perf_counter() - phases_t0})
+    return fit_launches
+
+
 def main() -> int:
     if not (ROOT / "isoforest_tpu_torch").is_dir() or not FIXTURE.is_dir() or not EIF_FIXTURE.is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -1011,6 +1280,7 @@ def main() -> int:
 
     ext_kernels = eif_phases(dev, rng, X_m, y_m, X_big)
     fit_launches = fit_phases(dev, X_m, y_m, X_big, model)
+    ext_kernels[0]["fit_launches"] = eif_fit_phases(dev, X_m, y_m, X_big)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",

@@ -1,23 +1,23 @@
 """isoforest_tpu_torch: the isolation forest of ``isoforest_tpu`` in PyTorch,
 with hand-written CUDA kernels for NVIDIA Hopper (H100).
 
-It fits standard forests and serves standard and extended (EIF) forests:
-fit one on the card (:class:`IsolationForest`) or load a model the JAX
-package (or the reference) saved, and score rows on the card through the
+It fits and serves standard and extended (EIF) forests: fit one on the card
+(:class:`IsolationForest`, :class:`ExtendedIsolationForest`) or load a model
+the JAX package (or the reference) saved, and score rows on the card through the
 O(h) walk kernels (``walk_sum`` and ``ext_walk_sum`` of
 ``csrc/path_walk.cu``) or the dense level-walk kernels (``csrc/dense.cu``,
 ``ext_sparse_mean`` of ``csrc/path_walk.cu``, ``csrc/ext_gemm.cu``). Entry points
 run on the card unless the caller names another device; ``device="cpu"``
 runs the kernels' plain PyTorch versions.
 
-    from isoforest_tpu_torch import IsolationForest, load_model
-    model = IsolationForest(contamination=0.02).fit(X)
+    from isoforest_tpu_torch import ExtendedIsolationForest, IsolationForest, load_model
+    model = IsolationForest(contamination=0.02).fit(X)  # or ExtendedIsolationForest(...)
     model.save("path/to/model")
     scores = load_model("path/to/model").score(X)
 """
 
 from .io import persistence
-from .models import ExtendedIsolationForestModel, IsolationForest, IsolationForestModel
+from .models import ExtendedIsolationForest, ExtendedIsolationForestModel, IsolationForest, IsolationForestModel
 from .ops.traversal import score_matrix
 
 
@@ -29,4 +29,4 @@ def load_model(path: str, device=None, require_success: bool = True, verify="aut
     return persistence.load_model(path, device=device, require_success=require_success, verify=verify)
 
 
-__all__ = ["ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel", "load_model", "score_matrix"]
+__all__ = ["ExtendedIsolationForest", "ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel", "load_model", "score_matrix"]

@@ -43,6 +43,7 @@ SPARK_VERSION_STRING = "3.5.5"  # the layout's version tag in metadata
 STANDARD_MODEL_CLASS = "com.linkedin.relevance.isolationforest.IsolationForestModel"
 EXTENDED_MODEL_CLASS = "com.linkedin.relevance.isolationforest.extended.ExtendedIsolationForestModel"
 STANDARD_ESTIMATOR_CLASS = "com.linkedin.relevance.isolationforest.IsolationForest"
+EXTENDED_ESTIMATOR_CLASS = "com.linkedin.relevance.isolationforest.extended.ExtendedIsolationForest"
 
 # The node table's schema, as spark-avro writes the reference's.
 STANDARD_SCHEMA = {
@@ -63,6 +64,34 @@ STANDARD_SCHEMA = {
                         {"name": "rightChild", "type": "int"},
                         {"name": "splitAttribute", "type": "int"},
                         {"name": "splitValue", "type": "double"},
+                        {"name": "numInstances", "type": "long"},
+                    ],
+                },
+                "null",
+            ],
+        },
+    ],
+}
+
+EXTENDED_SCHEMA = {
+    "type": "record",
+    "name": "topLevelRecord",
+    "fields": [
+        {"name": "treeID", "type": "int"},
+        {
+            "name": "extendedNodeData",
+            "type": [
+                {
+                    "type": "record",
+                    "name": "extendedNodeData",
+                    "namespace": "topLevelRecord",
+                    "fields": [
+                        {"name": "id", "type": "int"},
+                        {"name": "leftChild", "type": "int"},
+                        {"name": "rightChild", "type": "int"},
+                        {"name": "indices", "type": [{"type": "array", "items": "int"}, "null"]},
+                        {"name": "weights", "type": [{"type": "array", "items": "float"}, "null"]},
+                        {"name": "offset", "type": "double"},
                         {"name": "numInstances", "type": "long"},
                     ],
                 },
@@ -111,6 +140,36 @@ def standard_tree_to_records(feature, threshold, num_instances) -> List[dict]:
             records[my_id] = {
                 "id": my_id, "leftChild": -1, "rightChild": -1, "splitAttribute": -1,
                 "splitValue": 0.0, "numInstances": int(num_instances[slot]),
+            }
+        return my_id
+
+    walk(0)
+    return records
+
+
+def extended_tree_to_records(indices, weights, offset, num_instances) -> List[dict]:
+    """One EIF tree's heap arrays -> pre-order node records: a leaf has
+    empty ``indices``/``weights`` and offset 0.0, and an internal node's
+    ``(-1, 0.0)`` padding is dropped (ExtendedIsolationForestModelReadWrite.scala:33-35)."""
+    records: List[dict] = []
+
+    def walk(slot: int) -> int:
+        my_id = len(records)
+        records.append(None)  # reserve the pre-order position
+        if indices[slot, 0] >= 0:
+            left = walk(2 * slot + 1)
+            right = walk(2 * slot + 2)
+            valid = indices[slot] >= 0
+            records[my_id] = {
+                "id": my_id, "leftChild": left, "rightChild": right,
+                "indices": [int(v) for v in indices[slot][valid]],
+                "weights": [float(v) for v in weights[slot][valid]],
+                "offset": float(offset[slot]), "numInstances": -1,
+            }
+        else:
+            records[my_id] = {
+                "id": my_id, "leftChild": -1, "rightChild": -1, "indices": [], "weights": [],
+                "offset": 0.0, "numInstances": int(num_instances[slot]),
             }
         return my_id
 
@@ -325,22 +384,37 @@ def _model_metadata(model, class_name: str) -> dict:
     }
 
 
+def _save_model(path: str, overwrite: bool, metadata: dict, schema: dict, payload: str, trees) -> None:
+    """Write a model directory atomically: the metadata, then one Avro
+    part of ``(treeID, payload)`` rows, one per node record of ``trees``."""
+    with _atomic_dir(path, overwrite) as tmp:
+        _write_metadata(tmp, metadata)
+        records = [{"treeID": t, payload: node} for t, nodes in enumerate(trees) for node in nodes]
+        os.makedirs(os.path.join(tmp, "data"))
+        avro.write_container(os.path.join(tmp, "data", f"part-00000-{uuid.uuid4()}-c000.avro"), schema, records)
+        open(os.path.join(tmp, "data", "_SUCCESS"), "w").close()
+
+
 def save_standard_model(model, path: str, overwrite: bool = False) -> None:
     """Save a standard model atomically in the reference's layout. The
     forest is copied to the host once and encoded there."""
     feature, threshold, num_instances = (a.cpu().numpy() for a in model.forest)
-    with _atomic_dir(path, overwrite) as tmp:
-        _write_metadata(tmp, _model_metadata(model, STANDARD_MODEL_CLASS))
-        records = [
-            {"treeID": t, "nodeData": node}
-            for t in range(feature.shape[0])
-            for node in standard_tree_to_records(feature[t], threshold[t], num_instances[t])
-        ]
-        os.makedirs(os.path.join(tmp, "data"))
-        avro.write_container(os.path.join(tmp, "data", f"part-00000-{uuid.uuid4()}-c000.avro"),
-                             STANDARD_SCHEMA, records)
-        open(os.path.join(tmp, "data", "_SUCCESS"), "w").close()
+    trees = (standard_tree_to_records(feature[t], threshold[t], num_instances[t]) for t in range(feature.shape[0]))
+    _save_model(path, overwrite, _model_metadata(model, STANDARD_MODEL_CLASS), STANDARD_SCHEMA, "nodeData", trees)
     logger.info("saved IsolationForestModel (%d trees) to %s", feature.shape[0], path)
+
+
+def save_extended_model(model, path: str, overwrite: bool = False) -> None:
+    """Save an extended model atomically in the reference's layout. The
+    paramMap always carries the resolved ``extensionLevel``, even when the
+    estimator left it unset (ExtendedIsolationForest.scala:102)."""
+    indices, weights, offset, num_instances = (a.cpu().numpy() for a in model.forest)
+    metadata = _model_metadata(model, EXTENDED_MODEL_CLASS)
+    metadata["paramMap"]["extensionLevel"] = int(model.extension_level)
+    trees = (extended_tree_to_records(indices[t], weights[t], offset[t], num_instances[t])
+             for t in range(indices.shape[0]))
+    _save_model(path, overwrite, metadata, EXTENDED_SCHEMA, "extendedNodeData", trees)
+    logger.info("saved ExtendedIsolationForestModel (%d trees) to %s", indices.shape[0], path)
 
 
 def save_estimator(estimator, path: str, class_name: str, overwrite: bool = False) -> None:

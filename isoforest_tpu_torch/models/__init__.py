@@ -1,6 +1,6 @@
-"""The estimator and fitted models."""
+"""The estimators and fitted models."""
 
-from .extended import ExtendedIsolationForestModel
+from .extended import ExtendedIsolationForest, ExtendedIsolationForestModel
 from .isolation_forest import IsolationForest, IsolationForestModel
 
-__all__ = ["ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel"]
+__all__ = ["ExtendedIsolationForest", "ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel"]

@@ -1,23 +1,69 @@
-"""The serving side of ``ExtendedIsolationForestModel``
-(``isoforest_tpu/models/extended.py:264-315``).
+"""The extended isolation forest: the estimator :class:`ExtendedIsolationForest`
+and the fitted :class:`ExtendedIsolationForestModel`
+(``isoforest_tpu/models/extended.py``).
 
-A fitted extended (EIF) forest that scores, predicts and transforms rows on
-its device. Scoring dispatches on the forest's type
-(ExtendedIsolationForestModel.scala:98-135); only the recorded
-``extension_level`` and loading differ from the standard model. EIF fit is
-not ported yet: a model comes from :meth:`ExtendedIsolationForestModel.load` or
-from arrays (:func:`isoforest_tpu_torch.io.interop.extended_model_from_arrays`).
+``ExtendedIsolationForest(...).fit(X)`` runs on one device through the
+standard estimator's path (bags, feature subsets, then growth by random
+hyperplanes, :func:`~isoforest_tpu_torch.ops.ext_growth.grow_extended_forest_fused`,
+then the contamination threshold over the training rows' scores, through
+the EIF walk kernel on the card). ``extensionLevel`` resolves at fit
+(unset: ``numFeatures - 1``, fully extended); the estimator keeps its own
+params and the model records the resolved level
+(ExtendedIsolationForest.scala:56-69, 102). Scoring dispatches on the
+forest's type (ExtendedIsolationForestModel.scala:98-135); only the recorded
+``extension_level`` and persistence differ from the standard model.
 """
 
 from __future__ import annotations
 
-import uuid
 from typing import Optional
 
 from ..ops.ext_growth import ExtendedForest
 from ..utils.params import ExtendedIsolationForestParams
 from ..utils.validation import UNKNOWN_TOTAL_NUM_FEATURES
-from .isolation_forest import IsolationForestModel
+from .isolation_forest import (
+    IsolationForestModel,
+    _fit_from_sample_impl,
+    _fit_impl,
+    _new_uid,
+    _ParamSetters,
+)
+
+
+class ExtendedIsolationForest(_ParamSetters):
+    """Estimator: ``fit(data) -> ExtendedIsolationForestModel``
+    (ExtendedIsolationForest.scala:40-136) on ``device`` (default: the card)."""
+
+    def __init__(self, params: Optional[ExtendedIsolationForestParams] = None, uid=None, device=None, **kw):
+        self.params = params if params is not None else ExtendedIsolationForestParams(**kw)
+        self.uid = uid or _new_uid("extended-isolation-forest")
+        self.device = device
+
+    def set_extension_level(self, v: int):
+        return self._set(extension_level=v)
+
+    def fit(self, data, nonfinite: str = "warn", subsample_trees=None) -> "ExtendedIsolationForestModel":
+        """Fit on an ``[N, F]`` tensor, array or DataFrame; the same knobs
+        as :meth:`IsolationForest.fit`."""
+        return _fit_impl(self, data, extended=True, nonfinite=nonfinite, subsample_trees=subsample_trees)
+
+    def fit_from_sample(self, X_sample, bag, nonfinite: str = "warn") -> "ExtendedIsolationForestModel":
+        """Fit from a materialised sample and its bags, as
+        :meth:`IsolationForest.fit_from_sample`."""
+        return _fit_from_sample_impl(self, X_sample, bag, extended=True, nonfinite=nonfinite)
+
+    def save(self, path: str, overwrite: bool = False) -> None:
+        """Save the params (metadata only) under the reference's estimator class."""
+        from ..io.persistence import EXTENDED_ESTIMATOR_CLASS, save_estimator
+
+        save_estimator(self, path, EXTENDED_ESTIMATOR_CLASS, overwrite=overwrite)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "ExtendedIsolationForest":
+        from ..io.persistence import EXTENDED_ESTIMATOR_CLASS, load_estimator
+
+        params, uid = load_estimator(path, ExtendedIsolationForestParams, EXTENDED_ESTIMATOR_CLASS)
+        return cls(params=params, uid=uid, device=device)
 
 
 class ExtendedIsolationForestModel(IsolationForestModel):
@@ -41,9 +87,16 @@ class ExtendedIsolationForestModel(IsolationForestModel):
             num_features=num_features,
             total_num_features=total_num_features,
             outlier_score_threshold=outlier_score_threshold,
-            uid=uid or f"extended-isolation-forest_{uuid.uuid4().hex[:12]}",
+            uid=uid or _new_uid("extended-isolation-forest"),
         )
         self.extension_level = int(extension_level)
+
+    def save(self, path: str, overwrite: bool = False) -> None:
+        """Save atomically in the reference's extended layout, with the
+        resolved ``extensionLevel`` in the paramMap; the JAX package loads it."""
+        from ..io.persistence import save_extended_model
+
+        save_extended_model(self, path, overwrite=overwrite)
 
     @classmethod
     def load(

@@ -3,7 +3,8 @@ the fitted :class:`IsolationForestModel` (``isoforest_tpu/models/isolation_fores
 
 ``IsolationForest(...).fit(X)`` runs on one device: the bags, feature
 subsets, per-level statistics and draws of growth
-(:func:`~isoforest_tpu_torch.ops.tree_growth.grow_forest_fused`), then the
+(:func:`~isoforest_tpu_torch.ops.tree_growth.grow_forest_fused`; the
+extended estimator shares this path, :func:`_fit_impl`), then the
 contamination threshold over the training rows' scores, which go through
 the model's own scoring path (the walk kernel on the card). Only the
 parameters' resolution, the threshold's one float and a save's Avro encode
@@ -28,12 +29,13 @@ import torch
 
 from ..ops import prng
 from ..ops.bagging import feature_subsets, per_tree_keys
+from ..ops.ext_growth import grow_extended_forest, grow_extended_forest_fused
 from ..ops.quantile import contamination_threshold, observed_contamination
 from ..ops.traversal import score_matrix
 from ..ops.tree_growth import StandardForest, grow_forest, grow_forest_fused
 from ..utils.device import resolve_device
 from ..utils.math import height_limit
-from ..utils.params import IsolationForestParams, resolve_params
+from ..utils.params import IsolationForestParams, resolve_extension_level, resolve_params
 from ..utils.validation import UNKNOWN_TOTAL_NUM_FEATURES, extract_features, logger
 
 
@@ -124,37 +126,7 @@ class IsolationForest(_ParamSetters):
         ``subsample_trees`` grows only that many (int) or that share
         (float) of ``numEstimators`` trees, and the model records the
         smaller ensemble."""
-        dev = resolve_device(self.device)
-        p = self.params
-        if subsample_trees is not None:
-            effective = _resolve_subsample_trees(subsample_trees, p.num_estimators)
-            logger.info("subsample_trees=%r: growing %d of %d trees", subsample_trees, effective, p.num_estimators)
-            p = p.replace(num_estimators=effective)
-        X, _ = extract_features(data, p.features_col, nonfinite=nonfinite, device=dev)
-        total_rows, total_feats = int(X.shape[0]), int(X.shape[1])
-        resolved = resolve_params(p, total_feats, total_rows)
-        logger.info(
-            "resolved params: numSamples=%d numFeatures=%d (of %d rows x %d features)",
-            resolved.num_samples, resolved.num_features, total_rows, total_feats,
-        )
-        forest = grow_forest_fused(
-            _seed_key(p, dev),
-            X,
-            num_samples=resolved.num_samples,
-            num_trees=p.num_estimators,
-            bootstrap=p.bootstrap,
-            num_features=resolved.num_features,
-            height=height_limit(resolved.num_samples),
-        )
-        model = IsolationForestModel(
-            forest=forest,
-            params=p,
-            num_samples=resolved.num_samples,
-            num_features=resolved.num_features,
-            total_num_features=total_feats,
-        )
-        _compute_and_set_threshold(model, X)
-        return model
+        return _fit_impl(self, data, extended=False, nonfinite=nonfinite, subsample_trees=subsample_trees)
 
     def fit_from_sample(self, X_sample, bag, nonfinite: str = "warn") -> "IsolationForestModel":
         """Fit from a materialised sample: ``X_sample [U, F]`` and the bags
@@ -163,46 +135,7 @@ class IsolationForest(_ParamSetters):
         ``(k_bag, k_feat, k_grow)`` split as :meth:`fit`, so two fits of one
         sample are bitwise equal. ``maxSamples`` must be a count; the
         threshold comes from the sample's own scores."""
-        dev = resolve_device(self.device)
-        p = self.params
-        X, _ = extract_features(X_sample, p.features_col, nonfinite=nonfinite, device=dev)
-        if X.shape[0] == 0:
-            raise ValueError(f"sample matrix must be non-empty 2-D, got shape {tuple(X.shape)}")
-        bag = (bag if isinstance(bag, torch.Tensor) else torch.from_numpy(np.asarray(bag))).to(dev)
-        if bag.dim() != 2:
-            raise ValueError(f"bag must be [trees, samples], got shape {tuple(bag.shape)}")
-        if bag.shape[0] != p.num_estimators:
-            raise ValueError(f"bag has {bag.shape[0]} trees but numEstimators={p.num_estimators}")
-        if p.max_samples <= 1.0:
-            raise ValueError(
-                f"a fit from a sample requires an absolute maxSamples (> 1), got fraction {p.max_samples!r}"
-            )
-        num_samples = int(math.floor(p.max_samples))
-        if bag.shape[1] != num_samples:
-            raise ValueError(
-                f"bag has {bag.shape[1]} samples per tree but maxSamples resolves to {num_samples}"
-            )
-        u, f = int(X.shape[0]), int(X.shape[1])
-        lo, hi = int(bag.min()), int(bag.max())
-        if lo < 0 or hi >= u:
-            raise ValueError(f"bag indexes rows outside the sample matrix [0, {u}) (min={lo}, max={hi})")
-        # max(U, S) keeps the small-dataset cap from shrinking S below the bag width
-        resolved = resolve_params(p, f, max(u, num_samples))
-        _, k_feat, k_grow = prng.split(_seed_key(p, dev), 3)  # k_bag is replaced by the bag
-        fidx = feature_subsets(k_feat, f, resolved.num_features, p.num_estimators)
-        forest = grow_forest(
-            per_tree_keys(k_grow, p.num_estimators), X, bag.to(torch.int32), fidx,
-            height_limit(resolved.num_samples),
-        )
-        model = IsolationForestModel(
-            forest=forest,
-            params=p,
-            num_samples=resolved.num_samples,
-            num_features=resolved.num_features,
-            total_num_features=f,
-        )
-        _compute_and_set_threshold(model, X)
-        return model
+        return _fit_from_sample_impl(self, X_sample, bag, extended=False, nonfinite=nonfinite)
 
     def save(self, path: str, overwrite: bool = False) -> None:
         """Save the params (metadata only, IsolationForest.scala:114-125)."""
@@ -216,6 +149,94 @@ class IsolationForest(_ParamSetters):
 
         params, uid = load_estimator(path, IsolationForestParams, STANDARD_ESTIMATOR_CLASS)
         return cls(params=params, uid=uid, device=device)
+
+
+def _grow_and_threshold(p, X, resolved, extended: bool, grow) -> "IsolationForestModel":
+    """The model of either estimator: ``grow(height, level)`` its forest
+    (``level``: the resolved ``extensionLevel`` of an EIF, else None), then
+    threshold it on ``X``."""
+    h = height_limit(resolved.num_samples)
+    common = dict(params=p, num_samples=resolved.num_samples, num_features=resolved.num_features,
+                  total_num_features=int(X.shape[1]))
+    if extended:
+        from .extended import ExtendedIsolationForestModel
+
+        level = resolve_extension_level(p.extension_level, resolved.num_features)
+        logger.info("resolved extensionLevel=%d", level)
+        model = ExtendedIsolationForestModel(forest=grow(h, level), extension_level=level, **common)
+    else:
+        model = IsolationForestModel(forest=grow(h, None), **common)
+    _compute_and_set_threshold(model, X)
+    return model
+
+
+def _fit_impl(est, data, *, extended: bool, nonfinite: str, subsample_trees) -> "IsolationForestModel":
+    """``fit`` of both estimators on one device: bags, feature subsets and
+    growth from one key (the fused program), then the threshold."""
+    dev = resolve_device(est.device)
+    p = est.params
+    if subsample_trees is not None:
+        effective = _resolve_subsample_trees(subsample_trees, p.num_estimators)
+        logger.info("subsample_trees=%r: growing %d of %d trees", subsample_trees, effective, p.num_estimators)
+        p = p.replace(num_estimators=effective)
+    X, _ = extract_features(data, p.features_col, nonfinite=nonfinite, device=dev)
+    total_rows, total_feats = int(X.shape[0]), int(X.shape[1])
+    resolved = resolve_params(p, total_feats, total_rows)
+    logger.info(
+        "resolved params: numSamples=%d numFeatures=%d (of %d rows x %d features)",
+        resolved.num_samples, resolved.num_features, total_rows, total_feats,
+    )
+    key = _seed_key(p, dev)
+    shape = dict(num_samples=resolved.num_samples, num_trees=p.num_estimators, bootstrap=p.bootstrap,
+                 num_features=resolved.num_features)
+
+    def grow(h, level):
+        if level is None:
+            return grow_forest_fused(key, X, **shape, height=h)
+        return grow_extended_forest_fused(key, X, **shape, height=h, extension_level=level)
+
+    return _grow_and_threshold(p, X, resolved, extended, grow)
+
+
+def _fit_from_sample_impl(est, X_sample, bag, *, extended: bool, nonfinite: str) -> "IsolationForestModel":
+    """``fit_from_sample`` of both estimators: the given bag replaces the
+    bagging draw; feature subsets and growth keys come from the fit's key."""
+    dev = resolve_device(est.device)
+    p = est.params
+    X, _ = extract_features(X_sample, p.features_col, nonfinite=nonfinite, device=dev)
+    if X.shape[0] == 0:
+        raise ValueError(f"sample matrix must be non-empty 2-D, got shape {tuple(X.shape)}")
+    bag = (bag if isinstance(bag, torch.Tensor) else torch.from_numpy(np.asarray(bag))).to(dev)
+    if bag.dim() != 2:
+        raise ValueError(f"bag must be [trees, samples], got shape {tuple(bag.shape)}")
+    if bag.shape[0] != p.num_estimators:
+        raise ValueError(f"bag has {bag.shape[0]} trees but numEstimators={p.num_estimators}")
+    if p.max_samples <= 1.0:
+        raise ValueError(
+            f"a fit from a sample requires an absolute maxSamples (> 1), got fraction {p.max_samples!r}"
+        )
+    num_samples = int(math.floor(p.max_samples))
+    if bag.shape[1] != num_samples:
+        raise ValueError(
+            f"bag has {bag.shape[1]} samples per tree but maxSamples resolves to {num_samples}"
+        )
+    u, f = int(X.shape[0]), int(X.shape[1])
+    lo, hi = int(bag.min()), int(bag.max())
+    if lo < 0 or hi >= u:
+        raise ValueError(f"bag indexes rows outside the sample matrix [0, {u}) (min={lo}, max={hi})")
+    # max(U, S) keeps the small-dataset cap from shrinking S below the bag width
+    resolved = resolve_params(p, f, max(u, num_samples))
+    _, k_feat, k_grow = prng.split(_seed_key(p, dev), 3)  # k_bag is replaced by the bag
+    fidx = feature_subsets(k_feat, f, resolved.num_features, p.num_estimators)
+    tree_keys = per_tree_keys(k_grow, p.num_estimators)
+    bag = bag.to(torch.int32)
+
+    def grow(h, level):
+        if level is None:
+            return grow_forest(tree_keys, X, bag, fidx, h)
+        return grow_extended_forest(tree_keys, X, bag, fidx, h, level)
+
+    return _grow_and_threshold(p, X, resolved, extended, grow)
 
 
 def _compute_and_set_threshold(model: "IsolationForestModel", X: torch.Tensor) -> None:

@@ -4,10 +4,13 @@ port's tests and ``chip_smoke.py``.
 numpy only: the arrays feed both :func:`isoforest_tpu_torch.io.interop.forest_from_arrays`
 (or ``extended_forest_from_arrays``) and the JAX package's ``StandardForest``
 (or ``ExtendedForest``), so the two packages walk the same forest; and
-:func:`growth_invariant_errors` checks a forest either package grew.
+:func:`growth_invariant_errors` and :func:`extended_growth_invariant_errors`
+check a forest either package grew.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 
@@ -117,23 +120,8 @@ def growth_invariant_errors(feature, threshold, num_instances, X, num_samples, a
     ``X``, and each tree's features within ``allowed_features[t]`` when
     given (its feature subset)."""
     feature, threshold, num_instances, X = (np.asarray(a) for a in (feature, threshold, num_instances, X))
-    errors = []
     internal, leaf = feature >= 0, num_instances >= 0
-    exists = internal | leaf
-    m = feature.shape[1]
-    if np.any(internal & leaf):
-        errors.append("a slot is both internal and a leaf")
-    if not np.all(exists[:, 0]):
-        errors.append("a tree has no root")
-    parents = np.arange((m - 1) // 2)
-    kids = np.stack([exists[:, 2 * parents + 1], exists[:, 2 * parents + 2]])
-    if np.any(internal[:, parents] & ~kids.all(axis=0)):
-        errors.append("an internal slot lacks a child")
-    if np.any(~internal[:, parents] & kids.any(axis=0)):
-        errors.append("a leaf or hole has a child")
-    sums = np.where(leaf, num_instances, 0).sum(axis=1)
-    if not np.all(sums == num_samples):
-        errors.append(f"leaf counts sum to {sorted(set(sums.tolist()))}, not {num_samples}")
+    errors = _heap_errors(internal, leaf, num_instances, num_samples)
     lo, hi = X.min(axis=0), X.max(axis=0)
     chosen = np.unique(feature[internal])
     constant = chosen[lo[chosen] == hi[chosen]]
@@ -149,3 +137,71 @@ def growth_invariant_errors(feature, threshold, num_instances, X, num_samples, a
                 errors.append(f"tree {t} splits outside its feature subset")
                 break
     return errors
+
+
+def _heap_errors(internal, leaf, num_instances, num_samples) -> list:
+    """Heap structure (disjoint roles, the root exists, an internal slot has
+    both children, a leaf or hole none) and leaf counts summing to
+    ``num_samples`` per tree."""
+    errors = []
+    exists = internal | leaf
+    m = internal.shape[1]
+    if np.any(internal & leaf):
+        errors.append("a slot is both internal and a leaf")
+    if not np.all(exists[:, 0]):
+        errors.append("a tree has no root")
+    parents = np.arange((m - 1) // 2)
+    kids = np.stack([exists[:, 2 * parents + 1], exists[:, 2 * parents + 2]])
+    if np.any(internal[:, parents] & ~kids.all(axis=0)):
+        errors.append("an internal slot lacks a child")
+    if np.any(~internal[:, parents] & kids.any(axis=0)):
+        errors.append("a leaf or hole has a child")
+    sums = np.where(leaf, num_instances, 0).sum(axis=1)
+    if not np.all(sums == num_samples):
+        errors.append(f"leaf counts sum to {sorted(set(sums.tolist()))}, not {num_samples}")
+    return errors
+
+
+def extended_growth_invariant_errors(indices, weights, offset, num_instances, X, num_samples,
+                                     allowed_features=None) -> list:
+    """What a grown EIF forest breaks of growth's invariants (none: an empty
+    list), on numpy copies: heap structure and leaf counts as for the
+    standard forest, unit-norm weights at internal slots, strictly
+    ascending coordinates within ``X``'s width, finite offsets, and each
+    tree's coordinates within ``allowed_features[t]`` when given."""
+    indices, weights, offset, num_instances = (np.asarray(a) for a in (indices, weights, offset, num_instances))
+    internal, leaf = indices[..., 0] >= 0, num_instances >= 0
+    errors = _heap_errors(internal, leaf, num_instances, num_samples)
+    sub = indices[internal]
+    norms = np.linalg.norm(weights[internal].astype(np.float64), axis=-1)
+    if not np.allclose(norms, 1.0, atol=1e-5):
+        errors.append("a hyperplane's weights are not of unit norm")
+    if sub.size and (sub.min() < 0 or sub.max() >= np.asarray(X).shape[1]):
+        errors.append("a coordinate lies outside the data's width")
+    if sub.shape[-1] > 1 and not np.all(np.diff(sub, axis=1) > 0):
+        errors.append("a hyperplane's coordinates are not strictly ascending")
+    if not np.all(np.isfinite(offset[internal])):
+        errors.append("a non-finite offset")
+    if allowed_features is not None:
+        allowed = np.asarray(allowed_features)
+        for t in range(indices.shape[0]):
+            if not np.isin(indices[t][internal[t]], allowed[t]).all():
+                errors.append(f"tree {t} splits outside its feature subset")
+                break
+    return errors
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run the block with ``n`` torch intra-op threads, then restore the
+    count. Tests that run many float64 elementwise ops side by side with
+    other test processes take one thread each: a thread pool per process
+    oversubscribes the cores, and its threads spin waiting for each other."""
+    import torch
+
+    previous = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(previous)

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from isoforest_tpu_torch.ops import prng
+from isoforest_tpu_torch.testing import torch_threads
 
 SEEDS = [0, 1, 42, 2**31 + 5, 2**32 - 1]
 TINY = float(np.finfo(np.float32).tiny)
@@ -112,3 +113,79 @@ def test_gumbel_differs_only_by_log():
     unit = np.spacing(np.maximum(np.abs(want), 1).astype(np.float32)).astype(np.float64)
     assert (gap <= unit).all()
     assert 0.0 < (gap > 0).mean() < 0.5
+
+
+@pytest.fixture
+def one_torch_thread():
+    with torch_threads(1):
+        yield
+
+
+def _ulps(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """float32 ulps between same-signed values, by their bit patterns."""
+    return np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+
+
+def _log1p_arguments() -> np.ndarray:
+    rng = np.random.default_rng(0)
+    edges = [0.0, -0.0, -1.0, 1e-30, -1e-30, 1e-40, np.inf, -np.inf, np.nan, -1.5, 3e38,
+             np.sqrt(2) - 1, -(np.sqrt(2) - 1), np.nextafter(-1, 0)]
+    return np.concatenate([rng.uniform(-1, 1, 100_000), rng.uniform(-1e-3, 1e-3, 20_000),
+                           -rng.uniform(0, 1, 20_000) ** 2, rng.uniform(0, 100, 20_000), edges]).astype(np.float32)
+
+
+def test_log1p_is_xlas(one_torch_thread):
+    """XLA:CPU's float32 log1p (a Cephes rational function below sqrt(2) - 1,
+    its polynomial log of 1 + x above), with its FMAs and its
+    denormals-as-zero, bit for bit: both branches, and NaN, inf, -1 and
+    subnormal arguments."""
+    x = _log1p_arguments()
+    want = np.asarray(jax.jit(jnp.log1p)(jnp.asarray(x)))
+    got = prng.log1p(torch.from_numpy(x)).numpy()
+    same = (got.view(np.int32) == want.view(np.int32)) | (np.isnan(got) & np.isnan(want))
+    assert same.all(), x[~same][:5]
+    a = np.abs(x[np.isfinite(x)]) + np.float32(1e-40)  # subnormal and normal logs
+    _same(jax.jit(jnp.log)(jnp.asarray(a)), prng._log_xla(torch.from_numpy(a)))
+
+
+def test_erf_inv_and_normal_are_bitwise(one_torch_thread):
+    """``erf_inv`` is XLA's ``ErfInv32`` bit for bit, fed jax's own ``w =
+    -log1p(-x*x)`` and with the port's ``log1p``; so ``normal`` is jax's.
+    The one residue found on the way was torch's CPU ``sqrt``, an ulp off on
+    about 0.7% of inputs (the ``w >= 5`` branch takes ``sqrt(w) - 3``):
+    ``sqrt_f32`` rounds through float64 instead. (It showed on 1 of 200,000
+    draws fed jax's ``w``.)"""
+    lo = np.float32(np.nextafter(np.float32(-1), np.float32(0)))
+    for seed in (1, 2**31 + 5):
+        jk, pk = _key(seed)
+        u = np.asarray(jax.random.uniform(jk, (100_000,), jnp.float32, lo, 1.0))
+        w = np.asarray(jax.jit(lambda x: -jnp.log1p(-x * x))(jnp.asarray(u)))
+        want = jax.lax.erf_inv(jnp.asarray(u))
+        _same(want, prng.erf_inv_of_w(torch.from_numpy(u), torch.from_numpy(w)))
+        _same(want, prng.erf_inv(torch.from_numpy(u)))
+        _same(jax.random.normal(jk, (100_000,), jnp.float32), prng.normal(pk, 100_000))
+    jkeys = jax.vmap(lambda t: jax.random.fold_in(jk, t))(np.arange(4, dtype=np.uint32))
+    _same(jax.vmap(lambda k: jax.random.normal(k, (3, 7), jnp.float32))(jkeys),
+          prng.normal(prng.fold_in(pk, torch.arange(4)), (3, 7)))
+    x = np.concatenate([np.float32([-1, 1, 0, -0.0]), u[:1000]])
+    _same(jax.lax.erf_inv(jnp.asarray(x)), prng.erf_inv(torch.from_numpy(x)))
+    w = np.abs(np.random.default_rng(1).normal(size=100_000)).astype(np.float32) * 20
+    _same(jnp.sqrt(jnp.asarray(w)), prng.sqrt_f32(torch.from_numpy(w)))
+    assert 0.0 < (torch.sqrt(torch.from_numpy(w)).numpy() != np.sqrt(w)).mean() < 0.05
+
+
+def test_torch_erfinv_and_log1p_would_be_worse(one_torch_thread):
+    """Why ``normal`` carries its own ``erf_inv`` and ``log1p``: on the same
+    uniforms ``torch.erfinv`` misses jax's normal on more than half of the
+    draws, by tens of ulps, and torch's ``log1p`` alone (under the port's
+    ``erf_inv``) on about 1% of them, by up to 3 ulps."""
+    jk, pk = _key(1)
+    lo = np.float32(np.nextafter(np.float32(-1), np.float32(0)))
+    u = prng.uniform(pk, 200_000, float(lo), 1.0)
+    want = np.asarray(jax.random.normal(jk, (200_000,), jnp.float32))
+    by_torch = (np.float32(np.sqrt(2)) * torch.erfinv(u).numpy()).astype(np.float32)
+    gap = _ulps(by_torch, want)
+    assert (gap > 0).mean() > 0.5 and gap.max() > 20
+    by_torch_log1p = (np.float32(np.sqrt(2)) * prng.erf_inv_of_w(u, -torch.log1p(-u * u)).numpy()).astype(np.float32)
+    gap = _ulps(by_torch_log1p, want)
+    assert 0.005 < (gap > 0).mean() < 0.02 and gap.max() == 3

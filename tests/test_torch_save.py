@@ -6,6 +6,9 @@ A model the port fits and saves loads in the JAX package and scores within
 2e-6 there (the two walks sum in other orders), with the same threshold and
 paramMap. A directory that fails its manifest is refused (fault C2 of
 ROADMAP §C), and ``transform`` takes and returns a DataFrame (fault C1).
+An extended (EIF) model, loaded or fitted, saves in the reference's
+extended layout and loads in the JAX package with the same arrays and
+scores (fault C3: it was saved through the standard writer and failed).
 """
 
 from __future__ import annotations
@@ -24,14 +27,23 @@ from isoforest_tpu.io import avro as javro
 from isoforest_tpu.io import persistence as jpersistence
 from isoforest_tpu.models import IsolationForest as JaxEstimator
 from isoforest_tpu.models import IsolationForestModel as JaxModel
+from isoforest_tpu.models.extended import ExtendedIsolationForest as JaxExtendedEstimator
+from isoforest_tpu.models.extended import ExtendedIsolationForestModel as JaxExtendedModel
 from isoforest_tpu.ops.tree_growth import StandardForest as JaxForest
 from isoforest_tpu.resilience import manifest as jmanifest
-from isoforest_tpu_torch import IsolationForest, IsolationForestModel, load_model
+from isoforest_tpu_torch import (
+    ExtendedIsolationForest,
+    ExtendedIsolationForestModel,
+    IsolationForest,
+    IsolationForestModel,
+    load_model,
+)
 from isoforest_tpu_torch.io import avro, persistence
 from isoforest_tpu_torch.resilience import manifest
-from isoforest_tpu_torch.testing import random_heap_forest
+from isoforest_tpu_torch.testing import random_extended_forest, random_heap_forest, torch_threads
 
 FIXTURE = pathlib.Path(__file__).parent / "resources" / "torch_port" / "mammography_std" / "model"
+EIF_FIXTURE = FIXTURE.parent.parent / "mammography_eif" / "model"
 PARAMS = dict(num_estimators=16, max_samples=64.0, contamination=0.03, random_seed=2)
 
 
@@ -204,3 +216,88 @@ def test_jax_written_forest_round_trips_through_the_port(tmp_path):
     for name in ("feature", "threshold", "num_instances"):
         np.testing.assert_array_equal(np.asarray(getattr(back.forest, name)), np.asarray(getattr(forest, name)))
     assert back.outlier_score_threshold == 0.6
+
+
+@pytest.fixture
+def one_torch_thread():
+    with torch_threads(1):
+        yield
+
+
+def _same_extended_arrays(jax_forest, forest) -> None:
+    for name in ("indices", "weights", "offset", "num_instances"):
+        want, got = np.asarray(getattr(jax_forest, name)), getattr(forest, name).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32), err_msg=name)
+
+
+def test_loaded_extended_model_saves_for_the_jax_package(mammography, tmp_path, one_torch_thread):
+    """C3: the port saves the JAX-written EIF fixture it loaded; the JAX
+    package loads that directory with the same arrays, threshold and
+    extensionLevel, and its gather scores equal the fixture's committed
+    ones; the port reloads it to equal walk scores."""
+    X = mammography[0]
+    model = load_model(str(EIF_FIXTURE), device="cpu")
+    model.save(str(tmp_path / "m"))
+    assert sorted(os.listdir(tmp_path)) == ["m"]
+    assert jmanifest.verify(str(tmp_path / "m")) == []
+    ref = JaxExtendedModel.load(str(tmp_path / "m"))
+    _same_extended_arrays(ref.forest, model.forest)
+    assert ref.outlier_score_threshold == model.outlier_score_threshold == 0.6251140236854553
+    assert ref.extension_level == model.extension_level == 5 and ref.uid == model.uid
+    assert ref.params.to_param_map() == model.params.to_param_map()
+    want = np.load(EIF_FIXTURE.parent / "jax_scores.npy")
+    assert np.abs(np.asarray(ref.score(X, strategy="gather")) - want).max() <= 2e-6
+    back = load_model(str(tmp_path / "m"), device="cpu", verify=True)
+    assert isinstance(back, ExtendedIsolationForestModel) and back.extension_level == 5
+    for a, b in zip(back.forest, model.forest):
+        assert torch.equal(a, b)
+    assert torch.equal(back.score(X[:2000]), model.score(X[:2000]))
+
+
+def test_fitted_extended_model_saves_for_the_jax_package(mammography, tmp_path, one_torch_thread):
+    """A fitted EIF whose estimator left extensionLevel unset saves the
+    resolved level in its paramMap; the JAX package loads the same arrays
+    and scores them within 2e-6 of the port's own gather walk."""
+    from isoforest_tpu_torch.ops.traversal import extended_path_lengths
+    from isoforest_tpu_torch.utils.math import score_from_path_length
+
+    X = mammography[0][:2000]
+    model = ExtendedIsolationForest(**PARAMS, device="cpu").fit(X)
+    assert model.params.extension_level is None
+    model.save(str(tmp_path / "m"))
+    meta = json.loads((tmp_path / "m" / "metadata" / "part-00000").read_text())
+    assert meta["class"] == persistence.EXTENDED_MODEL_CLASS and meta["paramMap"]["extensionLevel"] == 5
+    ref = JaxExtendedModel.load(str(tmp_path / "m"))
+    _same_extended_arrays(ref.forest, model.forest)
+    assert ref.outlier_score_threshold == model.outlier_score_threshold and ref.extension_level == 5
+    gather = score_from_path_length(extended_path_lengths(model.forest, torch.from_numpy(X)), model.num_samples)
+    assert np.abs(np.asarray(ref.score(X, strategy="gather")) - gather.numpy()).max() <= 2e-6
+
+
+def test_extended_records_and_bytes_match_the_jax_package():
+    rng = np.random.default_rng(5)
+    arrays = random_extended_forest(rng, 4, 5, 9, 4, unused_p=0.3)
+    assert persistence.EXTENDED_SCHEMA == jpersistence.EXTENDED_SCHEMA
+    for t in range(4):
+        tree = [a[t] for a in arrays]
+        want = jpersistence.extended_tree_to_records(*tree)
+        assert persistence.extended_tree_to_records(*tree) == want
+        for rec in want:
+            row = {"treeID": t, "extendedNodeData": rec}
+            got_bytes, want_bytes = bytearray(), bytearray()
+            avro.encode_value(persistence.EXTENDED_SCHEMA, row, got_bytes)
+            javro.encode_value(jpersistence.EXTENDED_SCHEMA, row, want_bytes)
+            assert got_bytes == want_bytes
+
+
+def test_extended_estimator_save_load_round_trip(tmp_path):
+    est = ExtendedIsolationForest(**PARAMS, device="cpu").set_extension_level(2)
+    est.save(str(tmp_path / "e"))
+    back = ExtendedIsolationForest.load(str(tmp_path / "e"), device="cpu")
+    assert back.params == est.params and back.uid == est.uid and back.params.extension_level == 2
+    ref = JaxExtendedEstimator.load(str(tmp_path / "e"))
+    assert ref.params.to_param_map() == est.params.to_param_map()
+    meta = json.loads((tmp_path / "e" / "metadata" / "part-00000").read_text())
+    assert meta["class"] == persistence.EXTENDED_ESTIMATOR_CLASS == jpersistence.EXTENDED_ESTIMATOR_CLASS
+    with pytest.raises(ValueError, match="metadata class mismatch"):
+        IsolationForest.load(str(tmp_path / "e"))
