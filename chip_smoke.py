@@ -124,6 +124,29 @@ Then fit of the extended forest, on the card:
     N = 300 with S = 256, subsample_trees 0.5), each held to growth's
     invariants.
 
+Then the model's lifecycle around the kernels, on the card:
+
+20. baseline: the drift baseline of the fit_parity fits (standard and EIF)
+    against each fixture's committed ``_BASELINE.json`` (feature streams
+    exactly, score counts moved only by rows whose JAX score lies within
+    2e-6 of a bin edge, quantiles within 2e-6), a save and reload that
+    keeps it sealed and equal, and the 1M-row fits with and without capture
+    (the capture launches the path kernel once more), the capture's time;
+21. monitor: the loaded fixtures served with monitoring on: the training
+    rows keep score PSI < 0.1 with no alert, a shifted batch (``X * 3 + 5``)
+    alerts once for each stream past its threshold and a second one not
+    again, the gauge is set, the card's fold equals the CPU's on the same
+    values (NaN, +-inf and 1e30 included), and latency at 1, 64, 4,096 and
+    1M rows with the monitor on and off (median of 21);
+22. checkpoint: the 100-tree 1M-row fit and the mammography EIF fit with
+    ``checkpoint_every=32``, and each killed after block 1 and resumed,
+    equal to the plain fit bitwise; fit, seal and fingerprint times;
+23. tolerant_load: fixture copies in 1,000-record blocks with a sync marker
+    flipped as read, loaded on the card with ``on_corrupt="drop"``: the
+    report equals the CPU load's, a strict load refuses, and the survivors
+    through the walk kernels equal their plain versions exactly and the
+    CPU's scores within 2e-6.
+
 Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
 with its launches in the 1M-row fit and ``ext_walk_sum`` with its launches
 in the 1M-row EIF fit, ``fit_launches``), the ``nvidia-smi`` name and
@@ -1044,6 +1067,255 @@ def eif_fit_phases(dev, X_m, y_m, X_big) -> int:
     return fit_launches
 
 
+def _edge_rows(jax_scores) -> int:
+    """Rows whose JAX score lies within 2e-6 of a score bin edge ``j / 64``:
+    the port's walk sums in another order, so only these may change bins."""
+    import numpy as np
+
+    s = np.asarray(jax_scores, np.float64) * 64
+    return int((np.abs(s - np.round(s)) <= 2e-6 * 64).sum())
+
+
+def _sync_offsets(part) -> list:
+    """Where an Avro container's sync markers start (one after each block)."""
+    raw = pathlib.Path(part).read_bytes()
+    sync = raw[-16:]
+    return [i for i in range(len(raw) - 15) if raw.startswith(sync, i)]
+
+
+def model_phases(dev, X_m, X_big) -> None:
+    """Phases 20-23: the drift baseline, the monitor, the checkpointed fit
+    and the tolerant load, each path driven with its kernel's launch count
+    set to 0 just before and read just after."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import ExtendedIsolationForest, IsolationForest, load_model
+    from isoforest_tpu_torch.io import avro
+    from isoforest_tpu_torch.models.isolation_forest import _capture_fit_baseline
+    from isoforest_tpu_torch.ops import ext_path, ext_walk, walk
+    from isoforest_tpu_torch.resilience import checkpoint as ckpt
+    from isoforest_tpu_torch.resilience import faults, manifest
+    from isoforest_tpu_torch.telemetry import monitor as mon
+
+    kinds = {"standard": (IsolationForest, FIXTURE, "walk_sum"),
+             "extended": (ExtendedIsolationForest, EIF_FIXTURE, "ext_walk_sum")}
+
+    def same_forest(a, b) -> bool:
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a.forest, b.forest))
+
+    def path_kernel_errors(kernel, forest, X) -> dict:
+        """The path kernel against its plain version on ``X``, with its bulk
+        and its small-batch launch (not counted on the main path: callers
+        read their counts before)."""
+        if kernel == "walk_sum":
+            tables = walk.walk_tables(forest)
+            return {mode: float((ext_path.launch(kernel, X, tables, tree_parallel=small)
+                                 - walk.walk_sum_plain(X, tables, tree_parallel=small)).abs().max())
+                    for mode, small in (("bulk", False), ("small_batch", True))}
+        tables = ext_walk.walk_tables_extended(forest)
+        want = ext_path.path_sum_plain(X, tables, paired=1 < forest.k <= ext_path.PAIRED_MAX_K, mean=False,
+                                       tree_parallel=True)
+        return {mode: float((ext_path.launch(kernel, X, tables, tree_parallel=small) - want).abs().max())
+                for mode, small in (("bulk", False), ("small_batch", True))}
+
+    phases_t0 = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=build))
+    try:
+        # 20. baseline: the fixtures' own fits against their committed
+        # sidecars, a save and reload, and the 1M-row fit with and without
+        # capture (the capture launches the path kernel once more)
+        out = {"phase": "baseline"}
+        for kind, (cls, fixture, kernel) in kinds.items():
+            model = cls(contamination=0.02, random_seed=1).fit(X_m)
+            got = model.baseline.as_dict()
+            want = json.loads((fixture / "model" / mon.BASELINE_NAME).read_text())
+            moved = int(np.abs(np.array(got["score"]["counts"]) - np.array(want["score"]["counts"])).sum()) // 2
+            edge_rows = _edge_rows(np.load(fixture / "jax_scores.npy"))
+            quantile_err = max(abs(got["scoreQuantiles"][k] - want["scoreQuantiles"][k]) for k in want["scoreQuantiles"])
+            require(got["features"] == want["features"], f"{kind}: the fit's feature baselines differ from the sidecar's")
+            require(moved <= edge_rows, f"{kind}: {moved} score rows changed bins, only {edge_rows} lie at an edge")
+            require(quantile_err <= 2e-6, f"{kind}: score quantiles {quantile_err} from the sidecar's")
+            path = tmp / f"baseline_{kind}"
+            model.save(str(path))
+            listed = mon.BASELINE_NAME in json.loads((path / manifest.MANIFEST_NAME).read_text())["files"]
+            reloaded = load_model(str(path)).baseline == model.baseline
+            require(listed and reloaded, f"{kind}: the saved baseline did not come back sealed and equal")
+            est = cls(contamination=0.02, random_seed=1)
+            launches, fit_s = {}, {}
+            for flag in (True, False):
+                ext_path.launches[kernel] = 0
+                big, fit_s[flag] = synced(lambda: est.fit(X_big, baseline=flag))
+                launches[flag] = ext_path.launches[kernel]
+                require((big.baseline is not None) == flag, f"{kind}: baseline={flag} was not honoured")
+            require(launches[True] == launches[False] + 1 >= 2,
+                    f"{kind}: {kernel} launches with and without capture: {launches}")
+            Xd = torch.from_numpy(X_big).to(dev)
+            capture_s = [synced(lambda: _capture_fit_baseline(big, Xd))[1] for _ in range(7)]
+            out[kind] = {"kernel": kernel, "moved_score_rows": moved, "edge_rows": edge_rows,
+                         "quantile_max_abs_err": quantile_err, "sidecar_in_manifest": listed,
+                         "reloaded_equal": reloaded, "launches_1m_fit": {"with_capture": launches[True],
+                                                                          "without_capture": launches[False]},
+                         "fit_1m_s": {"with_capture": fit_s[True], "without_capture": fit_s[False]},
+                         "capture_1m_ms_median": statistics.median(capture_s) * 1e3,
+                         "captured_rows": big.baseline.captured_rows}
+        emit(out)
+
+        # 21. monitor: the fixtures served on the card with monitoring on
+        out = {"phase": "monitor"}
+        rng = np.random.default_rng(SEED + 3)
+        odd = X_m.copy()
+        odd[rng.integers(0, len(odd), 500), rng.integers(0, odd.shape[1], 500)] = rng.choice(
+            [np.nan, np.inf, -np.inf, 1e30], 500)
+        for kind, (cls, fixture, kernel) in kinds.items():
+            model = load_model(str(fixture / "model"))
+            monitor = model.enable_monitoring()
+            ext_path.launches[kernel] = 0
+            model.score(X_m)
+            launched = ext_path.launches[kernel]
+            trained = monitor.report()
+            require(launched >= 1, f"{kind}: the monitored score did not launch {kernel}")
+            require(trained["score"]["psi"] < 0.1 and not trained["drifted"],
+                    f"{kind}: the training rows drifted: {trained}")
+            model.score(X_m * 3 + 5)
+            first, drift = monitor.report(), monitor.drift()
+            crossed = ["score"] * (drift["score"]["psi"] > monitor.threshold) + [
+                f"feature:{i}" for i, v in drift["features"].items() if v > monitor.feature_threshold]
+            model.score(X_m * 3 + 5)
+            second = monitor.report()
+            require("score" in crossed and sorted(a["stream"] for a in first["alerts"]) == sorted(crossed),
+                    f"{kind}: alerts {first['alerts']} for crossings {crossed}")
+            require(second["alerts"] == first["alerts"], f"{kind}: a second shifted batch alerted again")
+            gauge = mon._SCORE_DRIFT_PSI.value()
+            require(gauge > monitor.threshold, f"{kind}: the score PSI gauge reads {gauge}")
+            # the card's fold against the CPU's, on the same values
+            card = mon.ScoreMonitor(model.baseline, min_rows=1, ladder=False)
+            host = mon.ScoreMonitor(model.baseline, min_rows=1, ladder=False)
+            for batch in (X_m, X_m * 3 + 5, odd, X_big[:70_000]):
+                xd = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
+                sd = model.score(xd, nonfinite="allow", fold_monitor=False)
+                card.observe(sd, xd)
+                host.observe(sd.cpu(), xd.cpu())
+            fold_equal = bool(np.array_equal(card._score_counts, host._score_counts)
+                              and np.array_equal(card._feature_counts, host._feature_counts))
+            require(fold_equal, f"{kind}: the card's fold differs from the CPU's")
+            latency = {}
+            for rows in (1, 64, 4096, FULL_ROWS):
+                batch = X_big[:rows]
+                for on in (True, False):
+                    if on:
+                        model.enable_monitoring()
+                    else:
+                        model.disable_monitoring()
+                    for _ in range(3):
+                        model.score(batch)
+                    lat = []
+                    for _ in range(21):
+                        t0 = time.perf_counter()
+                        model.score(batch).cpu()
+                        lat.append((time.perf_counter() - t0) * 1e3)
+                    latency[f"{'on' if on else 'off'}_{rows}"] = statistics.median(lat)
+            model.disable_monitoring()
+            out[kind] = {"kernel_launches": launched, "training": {"score_psi": trained["score"]["psi"],
+                                                                   "features_psi": trained["features"]},
+                         "shifted_alerts": first["alerts"], "second_batch_new_alerts": len(second["alerts"])
+                         - len(first["alerts"]), "score_psi_gauge": gauge, "card_fold_equals_cpu": fold_equal,
+                         "latency_median_ms": latency}
+        emit(out)
+
+        # 22. checkpoint: checkpointed and killed-then-resumed fits against
+        # the plain fit, the 1M rows (standard) and the mammography EIF
+        out = {"phase": "checkpoint"}
+        seal_s = []
+        seal_block = ckpt.FitCheckpoint.seal_block
+
+        def timed_seal(self, *args, **kw):
+            t0 = time.perf_counter()
+            seal_block(self, *args, **kw)
+            seal_s.append(time.perf_counter() - t0)
+
+        ckpt.FitCheckpoint.seal_block = timed_seal
+        try:
+            for kind, X in (("standard", X_big), ("extended", X_m)):
+                cls, _, kernel = kinds[kind]
+                est = cls(contamination=0.02, random_seed=1)
+                plain, plain_s = synced(lambda: est.fit(X))
+                _, plain_s = synced(lambda: est.fit(X))
+                del seal_s[:]
+                ext_path.launches[kernel] = 0
+                model, ck_s = synced(lambda: est.fit(X, checkpoint_dir=str(tmp / f"ck_{kind}"), checkpoint_every=32))
+                launched = ext_path.launches[kernel]
+                seals = list(seal_s)
+                killed = False
+                try:
+                    with faults.inject(kill_fit_after_block=1):
+                        est.fit(X, checkpoint_dir=str(tmp / f"kill_{kind}"), checkpoint_every=32)
+                except faults.FaultInjectedError:
+                    killed = True
+                resumed, resume_s = synced(lambda: est.fit(X, checkpoint_dir=str(tmp / f"kill_{kind}"),
+                                                           checkpoint_every=32, resume=True))
+                Xd = torch.from_numpy(X).to(dev)
+                _, fingerprint_s = synced(lambda: ckpt.data_fingerprint(Xd.cpu().numpy()))
+                equal = same_forest(model, plain) and model.outlier_score_threshold == plain.outlier_score_threshold
+                resumed_equal = (same_forest(resumed, plain)
+                                 and resumed.outlier_score_threshold == plain.outlier_score_threshold)
+                require(launched >= 1, f"{kind}: the checkpointed fit did not launch {kernel}")
+                require(equal and killed and resumed_equal, f"{kind}: checkpointed {equal}, killed {killed}, "
+                        f"resumed {resumed_equal}")
+                require(resumed.fit_checkpoint.blocks_loaded == 2, f"{kind}: resumed {resumed.fit_checkpoint.blocks_loaded}")
+                out[kind] = {"rows": len(X), "trees": model.forest.num_trees, "blocks": len(seals),
+                             "kernel_launches": launched, "equal_to_plain": equal, "resumed_equal_to_plain": resumed_equal,
+                             "plain_fit_s": plain_s, "checkpointed_fit_s": ck_s, "resumed_fit_s": resume_s,
+                             "seal_s": seals, "data_fingerprint_s": fingerprint_s}
+        finally:
+            ckpt.FitCheckpoint.seal_block = seal_block
+        emit(out)
+
+        # 23. tolerant_load: a fixture copy in 1,000-record blocks, one sync
+        # marker flipped as it is read, loaded on the card and on the CPU
+        out = {"phase": "tolerant_load"}
+        Xd = torch.from_numpy(X_m).to(dev)
+        for kind, (cls, fixture, kernel) in kinds.items():
+            path = tmp / f"drop_{kind}"
+            shutil.copytree(fixture / "model", path)
+            part = next((path / "data").glob("*.avro"))
+            schema, records = avro.read_container(str(part))
+            avro.write_container(str(part), schema, records, block_records=1000)
+            manifest.write(str(path))
+            armed = dict(corrupt_avro=str(_sync_offsets(part)[3]))
+            with faults.inject(**armed):
+                card = load_model(str(path), on_corrupt="drop")
+                host = load_model(str(path), device="cpu", on_corrupt="drop")
+                try:
+                    load_model(str(path))
+                    refused = False
+                except ValueError:
+                    refused = True
+            report = card.load_report.as_dict()
+            require(report == host.load_report.as_dict() and report["dropped_tree_ids"] and refused,
+                    f"{kind}: reports {report} / {host.load_report.as_dict()}, strict load refused: {refused}")
+            ext_path.launches[kernel] = 0
+            scores = card.score(Xd)
+            launched = ext_path.launches[kernel]
+            cpu_err = float((scores.cpu() - host.score(X_m)).abs().max())
+            kernel_err = path_kernel_errors(kernel, card.forest, Xd)
+            require(launched >= 1, f"{kind}: the salvaged model's score did not launch {kernel}")
+            require(all(v == 0.0 for v in kernel_err.values()) and cpu_err <= 2e-6,
+                    f"{kind}: salvaged {kernel} vs plain {kernel_err}, vs CPU {cpu_err}")
+            out[kind] = {"kept_trees": report["kept_trees"], "dropped_tree_ids": report["dropped_tree_ids"],
+                         "issues": report["issues"][:3], "strict_load_refused": refused, "kernel_launches": launched,
+                         "kernel_vs_plain": kernel_err, "max_abs_err_vs_cpu": cpu_err}
+        out["model_phases_s"] = time.perf_counter() - phases_t0
+        emit(out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / "isoforest_tpu_torch").is_dir() or not FIXTURE.is_dir() or not EIF_FIXTURE.is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -1281,6 +1553,7 @@ def main() -> int:
     ext_kernels = eif_phases(dev, rng, X_m, y_m, X_big)
     fit_launches = fit_phases(dev, X_m, y_m, X_big, model)
     ext_kernels[0]["fit_launches"] = eif_fit_phases(dev, X_m, y_m, X_big)
+    model_phases(dev, X_m, X_big)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",

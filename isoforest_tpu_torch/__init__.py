@@ -12,8 +12,12 @@ runs the kernels' plain PyTorch versions.
 
     from isoforest_tpu_torch import ExtendedIsolationForest, IsolationForest, load_model
     model = IsolationForest(contamination=0.02).fit(X)  # or ExtendedIsolationForest(...)
-    model.save("path/to/model")
-    scores = load_model("path/to/model").score(X)
+    model = IsolationForest(contamination=0.02).fit(X, checkpoint_dir="ckpt")  # resumable
+    model.save("path/to/model")  # with its drift baseline, _BASELINE.json
+    served = load_model("path/to/model")
+    monitor = served.enable_monitoring()  # every score() now folds into it
+    scores = served.score(X)
+    print(monitor.report())  # score and feature PSI, KS, alerts
 """
 
 from .io import persistence
@@ -21,12 +25,16 @@ from .models import ExtendedIsolationForest, ExtendedIsolationForestModel, Isola
 from .ops.traversal import score_matrix
 
 
-def load_model(path: str, device=None, require_success: bool = True, verify="auto") -> IsolationForestModel:
+def load_model(path: str, device=None, require_success: bool = True, verify="auto",
+               on_corrupt: str = "raise") -> IsolationForestModel:
     """Load a model directory onto ``device`` (default: the card) as the
     class its metadata names: an :class:`ExtendedIsolationForestModel` or an
     :class:`IsolationForestModel`. ``verify="auto"`` checks the directory's
-    ``_MANIFEST.json`` when it has one, and refuses it on any mismatch."""
-    return persistence.load_model(path, device=device, require_success=require_success, verify=verify)
+    ``_MANIFEST.json`` when it has one, and refuses it on any mismatch
+    unless ``on_corrupt="drop"`` and only data files are damaged: then the
+    intact trees are kept and ``model.load_report`` says which were lost."""
+    return persistence.load_model(path, device=device, require_success=require_success, verify=verify,
+                                  on_corrupt=on_corrupt)
 
 
 __all__ = ["ExtendedIsolationForest", "ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel", "load_model", "score_matrix"]

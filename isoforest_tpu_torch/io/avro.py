@@ -2,7 +2,8 @@
 
 A copy of ``isoforest_tpu/io/avro.py``: the read path (header, block
 decode, :func:`read_container`, codecs ``null``, ``deflate`` and
-``snappy``) and the write path (:func:`encode_value`,
+``snappy``, the best-effort :func:`read_blocks_tolerant` of a degraded
+load, and the read-fault seam of :mod:`..resilience.faults`) and the write path (:func:`encode_value`,
 :func:`write_container`, codecs ``null`` and ``deflate``), so the port
 reads and writes model files without the JAX package. It covers the subset
 of the Avro 1.x specification the model layout needs: primitives, records,
@@ -219,8 +220,10 @@ def decode_value(schema: Any, reader: _Reader) -> Any:
 def _read_container_header(path: str):
     """Parse the container header -> (reader at the first block, file bytes,
     schema, codec, sync marker)."""
+    from ..resilience import faults
+
     with open(path, "rb") as fh:
-        data = fh.read()
+        data = faults.filter_read_bytes(path, fh.read())
     if data[:4] != MAGIC:
         raise ValueError(f"{path}: not an Avro object container file")
     reader = _Reader(data, 4)
@@ -270,6 +273,33 @@ def read_blocks(path: str) -> Tuple[Any, List[Tuple[int, bytes]]]:
         if reader.read_raw(SYNC_SIZE) != sync:
             raise ValueError(f"{path}: sync marker mismatch")
     return schema, blocks
+
+
+def read_blocks_tolerant(path: str):
+    """Best-effort :func:`read_blocks` for a degraded load
+    (``on_corrupt="drop"``): a block that fails to decode, or whose sync
+    marker does not match, is reported and ends the read (the framing after
+    it cannot be trusted). Returns ``(schema, blocks, issues)``."""
+    reader, data, schema, codec, sync = _read_container_header(path)
+    blocks: List[Tuple[int, bytes]] = []
+    issues: List[str] = []
+    index = 0
+    while reader.pos < len(data):
+        try:
+            block = _decode_block(path, data, reader, codec)
+        except Exception as exc:
+            issues.append(f"{os.path.basename(path)} block {index}: {exc}")
+            break
+        if reader.read_raw(SYNC_SIZE) != sync:
+            issues.append(
+                f"{os.path.basename(path)} block {index}: sync marker "
+                "mismatch (truncated or shifted frame); discarding the "
+                "block and the remainder of the file"
+            )
+            break
+        blocks.append(block)
+        index += 1
+    return schema, blocks, issues
 
 
 def read_container(path: str) -> Tuple[Any, List[dict]]:

@@ -5,16 +5,19 @@ A model directory holds ``metadata/part-00000`` (one JSON line: class,
 uid, paramMap, outlierScoreThreshold, numSamples, numFeatures,
 totalNumFeatures) and ``data/*.avro``, one row per node, ``(treeID,
 nodeData)`` or ``(treeID, extendedNodeData)`` with pre-order ids and ``-1``
-sentinels (IsolationForestModelReadWrite.scala:82-132). The heap-tensor
-forest is written in pre-order and rebuilt on load, so each package loads
-what the other saves.
+sentinels (IsolationForestModelReadWrite.scala:82-132), and, for a model
+that carries a drift baseline, the ``_BASELINE.json`` sidecar
+(:mod:`..telemetry.monitor`). The heap-tensor forest is written in
+pre-order and rebuilt on load, so each package loads what the other saves.
 
 A save builds the whole directory under a sibling temporary name
 (``<path>.__tmp-<hex>``), seals it with ``_MANIFEST.json``
 (:mod:`..resilience.manifest`) and renames it into place, so no reader sees
 a partial model; a load refuses such a temporary directory and verifies a
-present manifest before it reads a byte of Avro. Not ported yet:
-``on_corrupt="drop"`` and the drift-baseline sidecar.
+present manifest before it reads a byte of Avro. ``on_corrupt="drop"``
+salvages what it can of a directory whose data files are damaged: the
+trees that decode and validate are kept, the rest are dropped and reported
+(``model.load_report``, the ``dropped_trees`` rung).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from ..ops.ext_growth import ExtendedForest
 from ..ops.tree_growth import StandardForest
 from ..resilience import manifest as _manifest
+from ..resilience.degradation import LoadReport, degrade
 from ..utils.device import resolve_device
 from ..utils.params import ExtendedIsolationForestParams, IsolationForestParams
 from ..utils.validation import UNKNOWN_TOTAL_NUM_FEATURES, logger
@@ -384,11 +388,13 @@ def _model_metadata(model, class_name: str) -> dict:
     }
 
 
-def _save_model(path: str, overwrite: bool, metadata: dict, schema: dict, payload: str, trees) -> None:
-    """Write a model directory atomically: the metadata, then one Avro
-    part of ``(treeID, payload)`` rows, one per node record of ``trees``."""
+def _save_model(model, path: str, overwrite: bool, metadata: dict, schema: dict, payload: str, trees) -> None:
+    """Write a model directory atomically: the metadata, the baseline
+    sidecar, then one Avro part of ``(treeID, payload)`` rows, one per node
+    record of ``trees``."""
     with _atomic_dir(path, overwrite) as tmp:
         _write_metadata(tmp, metadata)
+        _write_baseline(model, tmp)
         records = [{"treeID": t, payload: node} for t, nodes in enumerate(trees) for node in nodes]
         os.makedirs(os.path.join(tmp, "data"))
         avro.write_container(os.path.join(tmp, "data", f"part-00000-{uuid.uuid4()}-c000.avro"), schema, records)
@@ -400,7 +406,8 @@ def save_standard_model(model, path: str, overwrite: bool = False) -> None:
     forest is copied to the host once and encoded there."""
     feature, threshold, num_instances = (a.cpu().numpy() for a in model.forest)
     trees = (standard_tree_to_records(feature[t], threshold[t], num_instances[t]) for t in range(feature.shape[0]))
-    _save_model(path, overwrite, _model_metadata(model, STANDARD_MODEL_CLASS), STANDARD_SCHEMA, "nodeData", trees)
+    _save_model(model, path, overwrite, _model_metadata(model, STANDARD_MODEL_CLASS), STANDARD_SCHEMA, "nodeData",
+                trees)
     logger.info("saved IsolationForestModel (%d trees) to %s", feature.shape[0], path)
 
 
@@ -413,7 +420,7 @@ def save_extended_model(model, path: str, overwrite: bool = False) -> None:
     metadata["paramMap"]["extensionLevel"] = int(model.extension_level)
     trees = (extended_tree_to_records(indices[t], weights[t], offset[t], num_instances[t])
              for t in range(indices.shape[0]))
-    _save_model(path, overwrite, metadata, EXTENDED_SCHEMA, "extendedNodeData", trees)
+    _save_model(model, path, overwrite, metadata, EXTENDED_SCHEMA, "extendedNodeData", trees)
     logger.info("saved ExtendedIsolationForestModel (%d trees) to %s", indices.shape[0], path)
 
 
@@ -461,13 +468,14 @@ def _check_model_dir(path: str, require_success: bool, expect_data: bool = True)
             )
 
 
-def _verify_manifest(path: str, verify) -> None:
+def _verify_manifest(path: str, verify, on_corrupt: str = "raise") -> List[str]:
     """The manifest gate of a load. ``verify``: ``"auto"`` verifies a
     present manifest and warns when there is none (the reference's and
-    Spark's layouts), ``True`` requires one, ``False`` skips the check. Any
-    mismatch raises."""
+    Spark's layouts), ``True`` requires one, ``False`` skips the check.
+    Returns the data-file issues an ``on_corrupt="drop"`` load may
+    tolerate; any other mismatch raises."""
     if verify is False:
-        return
+        return []
     if verify not in ("auto", True):
         raise ValueError(f"verify must be 'auto', True or False, got {verify!r}")
     if not _manifest.present(path):
@@ -480,13 +488,194 @@ def _verify_manifest(path: str, verify) -> None:
             "model directory %s has no %s (legacy/Spark-written layout); "
             "integrity verification skipped", path, _manifest.MANIFEST_NAME,
         )
-        return
+        return []
     issues = _manifest.verify(path)
-    if issues:
+    if not issues:
+        return []
+    data_issues = [i for i in issues if i.startswith("data/")]
+    if len(data_issues) < len(issues) or on_corrupt != "drop":
         raise ValueError(
             f"model directory {path} failed manifest verification: " + "; ".join(issues)
-            + ". The directory is corrupt; restore it from source"
+            + ". The directory is corrupt; restore it from source, or pass "
+            "on_corrupt='drop' to salvage the intact trees (data files only)"
         )
+    return data_issues
+
+
+def _read_data_tolerant(path: str) -> Tuple[List[dict], List[str]]:
+    """Best-effort record read of a degraded load, with errors contained
+    per file, block and record: ``(records, issues)``."""
+    data_dir = os.path.join(path, "data")
+    records: List[dict] = []
+    issues: List[str] = []
+    fnames = sorted(f for f in os.listdir(data_dir) if f.endswith(".avro")) if os.path.isdir(data_dir) else []
+    if not fnames:
+        return records, ["data/: no avro part files"]
+    for fname in fnames:
+        try:
+            schema, blocks, file_issues = avro.read_blocks_tolerant(os.path.join(data_dir, fname))
+        except Exception as exc:
+            issues.append(f"{fname}: unreadable container ({exc})")
+            continue
+        issues.extend(file_issues)
+        for bi, (count, body) in enumerate(blocks):
+            # a record takes at least 2 bytes, so a larger count is
+            # corruption; bounding it keeps a flipped varint from driving
+            # a huge decode loop
+            if count <= 0 or count > len(body):
+                issues.append(f"{fname} block {bi}: implausible record count {count}")
+                continue
+            reader = avro._Reader(body)
+            block_records: List[dict] = []
+            try:
+                for _ in range(count):
+                    block_records.append(avro.decode_value(schema, reader))
+                if reader.pos != len(body):
+                    raise ValueError(f"{len(body) - reader.pos} undecoded trailing bytes")
+            except Exception as exc:
+                issues.append(f"{fname} block {bi}: corrupt records ({exc})")
+                continue
+            records.extend(block_records)
+    return records, issues
+
+
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def _tree_records_sane(records: List[dict], kind: str, max_k) -> None:
+    """Value checks of one salvaged tree: every field must fit the forest
+    tensors (int32 ids and counts, finite floats, a bounded hyperplane
+    width); a tree that parses can still carry poisoned values."""
+    for r in records:
+        for field in ("id", "leftChild", "rightChild"):
+            v = r[field]
+            if not isinstance(v, int) or not _I32_MIN <= v <= _I32_MAX:
+                raise ValueError(f"{field}={v!r} out of range")
+        if not _I32_MIN <= r["numInstances"] <= _I32_MAX:
+            raise ValueError(f"numInstances={r['numInstances']!r} out of range")
+        internal = r["leftChild"] >= 0
+        if kind == "standard":
+            if internal and not np.isfinite(r["splitValue"]):
+                raise ValueError(f"non-finite splitValue {r['splitValue']!r}")
+            if internal and not 0 <= r["splitAttribute"] <= _I32_MAX:
+                raise ValueError(f"splitAttribute={r['splitAttribute']!r} invalid")
+        else:
+            if not np.isfinite(r["offset"]):
+                raise ValueError(f"non-finite offset {r['offset']!r}")
+            idx, w = r["indices"], r["weights"]
+            if len(idx) != len(w):
+                raise ValueError("indices/weights length mismatch")
+            if max_k is not None and len(idx) > max_k:
+                raise ValueError(f"hyperplane width {len(idx)} exceeds the model's feature count {max_k}")
+            if internal and (any(not 0 <= i <= _I32_MAX for i in idx) or any(not np.isfinite(v) for v in w)):
+                raise ValueError("corrupt hyperplane coordinates")
+
+
+def _salvage_trees(records: List[dict], payload_field: str, kind: str, expected, max_k):
+    """Group records by treeID and keep the trees that validate fully
+    (contiguous pre-order ids, bounded depth, sane values):
+    ``({tree id: sorted records}, issues)``."""
+    trees: dict = {}
+    malformed = 0
+    for rec in records:
+        try:
+            tid = rec["treeID"]
+            payload = rec[payload_field]
+            if payload is None:
+                raise ValueError("null node payload")
+            if not isinstance(tid, int) or tid < 0 or tid > _I32_MAX:
+                raise ValueError(f"bad treeID {tid!r}")
+            if expected is not None and tid >= expected:
+                raise ValueError(f"phantom treeID {tid} >= numEstimators")
+            trees.setdefault(tid, []).append(payload)
+        except Exception:
+            malformed += 1
+    issues = [f"{malformed} malformed node records discarded"] if malformed else []
+    good: dict = {}
+    for tid in sorted(trees):
+        recs = sorted(trees[tid], key=lambda r: r.get("id", -1))
+        try:
+            _tree_records_sane(recs, kind, max_k)
+            _assign_heap_slots(recs)
+        except Exception as exc:
+            # repr: a KeyError from a dangling child pointer prints as the bare key
+            issues.append(f"tree {tid}: {exc!r}")
+            continue
+        good[tid] = recs
+    return good, issues
+
+
+def _load_forest_tolerant(path: str, payload_field: str, kind: str, to_forest, expected, max_k, pre_issues):
+    """The ``on_corrupt="drop"`` read: salvage the intact trees into a
+    smaller CPU forest and report what was lost, ``(forest, LoadReport)``.
+    Scores of the smaller forest divide by its own tree count."""
+    records, issues = _read_data_tolerant(path)
+    issues = list(pre_issues) + issues
+    good, tree_issues = _salvage_trees(records, payload_field, kind, expected, max_k)
+    issues += tree_issues
+    kept_ids = sorted(good)
+    if not kept_ids:
+        raise ValueError(f"no usable tree data under {path} even with on_corrupt='drop': " + "; ".join(issues[:10]))
+    dropped = tuple(sorted(set(range(expected)) - set(kept_ids))) if expected is not None else ()
+    forest = to_forest([good[t] for t in kept_ids])
+    if dropped or issues:
+        degrade(
+            "dropped_trees",
+            f"{expected if expected is not None else '?'}-tree forest",
+            f"{len(kept_ids)}-tree forest",
+            detail=(
+                f"loaded {path} in degraded mode: kept {len(kept_ids)} trees"
+                + (f", dropped tree ids {list(dropped)}" if dropped else "")
+                + (f"; issues: {'; '.join(issues[:5])}" if issues else "")
+                + " — scoring normalisation rescales to the surviving trees"
+            ),
+        )
+    report = LoadReport(path=path, expected_trees=expected, kept_trees=len(kept_ids), dropped_tree_ids=dropped,
+                        issues=tuple(issues))
+    return forest, report
+
+
+def _expected_trees(metadata: dict):
+    try:
+        n = int(metadata["paramMap"]["numEstimators"])
+        return n if n > 0 else None
+    except (KeyError, TypeError, ValueError):
+        return None
+
+
+def _write_baseline(model, tmp: str) -> None:
+    """Write the model's drift baseline, if it has one, as the
+    ``_BASELINE.json`` sidecar inside the atomic temp dir, so the manifest
+    seals it with the node table."""
+    from ..telemetry.monitor import BASELINE_NAME
+
+    baseline = getattr(model, "baseline", None)
+    if baseline is not None:
+        baseline.save(os.path.join(tmp, BASELINE_NAME))
+
+
+def _read_baseline(path: str):
+    """The ``_BASELINE.json`` sidecar, or None with a warning when it is
+    missing (a legacy or reference directory, or a fit without capture),
+    unreadable or of an unsupported version."""
+    from ..telemetry.monitor import BASELINE_NAME, Baseline
+
+    sidecar = os.path.join(path, BASELINE_NAME)
+    if not os.path.exists(sidecar):
+        logger.warning(
+            "model directory %s has no %s sidecar (legacy/reference layout "
+            "or a fit with baseline capture disabled): drift monitoring is "
+            "unavailable for this model until it is refitted", path, BASELINE_NAME,
+        )
+        return None
+    try:
+        return Baseline.load(sidecar)
+    except Exception as exc:
+        logger.warning(
+            "ignoring unreadable baseline sidecar %s (%s): drift monitoring "
+            "unavailable for this model", sidecar, exc,
+        )
+        return None
 
 
 def _check_class(metadata: dict, expected: str) -> None:
@@ -494,38 +683,59 @@ def _check_class(metadata: dict, expected: str) -> None:
         raise ValueError(f"metadata class mismatch: expected {expected}, found {metadata.get('class')}")
 
 
-def _load_common(path: str, expected_class: str, require_success: bool, verify="auto"):
+_ON_CORRUPT = ("raise", "drop")
+
+
+def _load_common(path: str, expected_class: str, require_success: bool, verify="auto", on_corrupt: str = "raise"):
     """Directory checks, the manifest and metadata: ``(metadata,
-    total_num_features)``."""
+    total_num_features, data_issues)``."""
+    if on_corrupt not in _ON_CORRUPT:
+        raise ValueError(f"on_corrupt must be 'raise' or 'drop', got {on_corrupt!r}")
     _check_model_dir(path, require_success)
-    _verify_manifest(path, verify)
+    data_issues = _verify_manifest(path, verify, on_corrupt)
     metadata = _read_metadata(path)
     _check_class(metadata, expected_class)
     if "totalNumFeatures" in metadata:
-        return metadata, int(metadata["totalNumFeatures"])
+        return metadata, int(metadata["totalNumFeatures"]), data_issues
     # legacy layout (IsolationForestModelReadWrite.scala:298-306)
     logger.warning(
         "loading legacy model without totalNumFeatures; feature-width "
         "validation disabled (sentinel -1)"
     )
-    return metadata, UNKNOWN_TOTAL_NUM_FEATURES
+    return metadata, UNKNOWN_TOTAL_NUM_FEATURES, data_issues
 
 
-def _restore_threshold(model, metadata: dict):
+def _read_forest(path: str, metadata: dict, on_corrupt: str, data_issues, payload: str, kind: str, to_forest,
+                 max_k=None):
+    """The node table as a CPU forest: strictly, or salvaged by
+    ``on_corrupt="drop"``; ``(forest, LoadReport or None)``."""
+    if on_corrupt == "drop":
+        return _load_forest_tolerant(path, payload, kind, to_forest, _expected_trees(metadata), max_k, data_issues)
+    return to_forest(_group_trees(_read_data(path), payload)), None
+
+
+def _finish_load(model, path: str, metadata: dict, load_report):
+    """The load report, the baseline sidecar and the threshold."""
+    model.load_report = load_report
+    model.baseline = _read_baseline(path)
     threshold = float(metadata.get("outlierScoreThreshold", -1.0))
     if threshold >= 0:
         model.set_outlier_score_threshold(threshold)
     return model
 
 
-def load_standard_model(path: str, device=None, require_success: bool = True, verify="auto"):
+def load_standard_model(path: str, device=None, require_success: bool = True, verify="auto",
+                        on_corrupt: str = "raise"):
     """Load a standard model directory onto ``device`` (default: the card).
-    ``verify``: the manifest check (:func:`_verify_manifest`)."""
+    ``verify``: the manifest check (:func:`_verify_manifest`);
+    ``on_corrupt``: ``"raise"``, or ``"drop"`` to salvage the intact trees."""
     from ..models.isolation_forest import IsolationForestModel
 
     dev = resolve_device(device)
-    metadata, total_num_features = _load_common(path, STANDARD_MODEL_CLASS, require_success, verify)
-    forest = records_to_standard_forest(_group_trees(_read_data(path), "nodeData"))
+    metadata, total_num_features, data_issues = _load_common(path, STANDARD_MODEL_CLASS, require_success, verify,
+                                                             on_corrupt)
+    forest, report = _read_forest(path, metadata, on_corrupt, data_issues, "nodeData", "standard",
+                                  records_to_standard_forest)
     model = IsolationForestModel(
         forest=forest.to(dev),
         params=IsolationForestParams.from_param_map(metadata["paramMap"]),
@@ -534,19 +744,23 @@ def load_standard_model(path: str, device=None, require_success: bool = True, ve
         total_num_features=total_num_features,
         uid=metadata.get("uid"),
     )
-    return _restore_threshold(model, metadata)
+    return _finish_load(model, path, metadata, report)
 
 
-def load_extended_model(path: str, device=None, require_success: bool = True, verify="auto"):
+def load_extended_model(path: str, device=None, require_success: bool = True, verify="auto",
+                        on_corrupt: str = "raise"):
     """Load an extended model directory onto ``device`` (default: the card).
     A model whose paramMap has no ``extensionLevel`` records ``k - 1``.
-    ``verify``: the manifest check (:func:`_verify_manifest`)."""
+    ``verify`` and ``on_corrupt`` as :func:`load_standard_model`; a
+    salvaged hyperplane may be at most ``numFeatures`` wide."""
     from ..models.extended import ExtendedIsolationForestModel
 
     dev = resolve_device(device)
-    metadata, total_num_features = _load_common(path, EXTENDED_MODEL_CLASS, require_success, verify)
+    metadata, total_num_features, data_issues = _load_common(path, EXTENDED_MODEL_CLASS, require_success, verify,
+                                                             on_corrupt)
     params = ExtendedIsolationForestParams.from_param_map(metadata["paramMap"])
-    forest = records_to_extended_forest(_group_trees(_read_data(path), "extendedNodeData"))
+    forest, report = _read_forest(path, metadata, on_corrupt, data_issues, "extendedNodeData", "extended",
+                                  records_to_extended_forest, int(metadata.get("numFeatures", 0)) or None)
     model = ExtendedIsolationForestModel(
         forest=forest.to(dev),
         params=params,
@@ -556,13 +770,13 @@ def load_extended_model(path: str, device=None, require_success: bool = True, ve
         total_num_features=total_num_features,
         uid=metadata.get("uid"),
     )
-    return _restore_threshold(model, metadata)
+    return _finish_load(model, path, metadata, report)
 
 
-def load_model(path: str, device=None, require_success: bool = True, verify="auto"):
+def load_model(path: str, device=None, require_success: bool = True, verify="auto", on_corrupt: str = "raise"):
     """Load a model directory as the class its metadata names: an
     :class:`ExtendedIsolationForestModel` for the extended class, else an
     :class:`IsolationForestModel` (which refuses any other class)."""
     _check_model_dir(path, require_success)
     load = load_extended_model if _read_metadata(path).get("class") == EXTENDED_MODEL_CLASS else load_standard_model
-    return load(path, device=device, require_success=require_success, verify=verify)
+    return load(path, device=device, require_success=require_success, verify=verify, on_corrupt=on_corrupt)

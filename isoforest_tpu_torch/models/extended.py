@@ -42,15 +42,22 @@ class ExtendedIsolationForest(_ParamSetters):
     def set_extension_level(self, v: int):
         return self._set(extension_level=v)
 
-    def fit(self, data, nonfinite: str = "warn", subsample_trees=None) -> "ExtendedIsolationForestModel":
+    def fit(self, data, nonfinite: str = "warn", subsample_trees=None, checkpoint_dir: Optional[str] = None,
+            checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,
+            block_callback=None) -> "ExtendedIsolationForestModel":
         """Fit on an ``[N, F]`` tensor, array or DataFrame; the same knobs
-        as :meth:`IsolationForest.fit`."""
-        return _fit_impl(self, data, extended=True, nonfinite=nonfinite, subsample_trees=subsample_trees)
+        as :meth:`IsolationForest.fit`, checkpoints and baseline included."""
+        return _fit_impl(self, data, extended=True, nonfinite=nonfinite, subsample_trees=subsample_trees,
+                         checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback), baseline=baseline)
 
-    def fit_from_sample(self, X_sample, bag, nonfinite: str = "warn") -> "ExtendedIsolationForestModel":
+    def fit_from_sample(self, X_sample, bag, nonfinite: str = "warn", checkpoint_dir: Optional[str] = None,
+                        checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,
+                        block_callback=None) -> "ExtendedIsolationForestModel":
         """Fit from a materialised sample and its bags, as
         :meth:`IsolationForest.fit_from_sample`."""
-        return _fit_from_sample_impl(self, X_sample, bag, extended=True, nonfinite=nonfinite)
+        return _fit_from_sample_impl(self, X_sample, bag, extended=True, nonfinite=nonfinite,
+                                     checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback),
+                                     baseline=baseline)
 
     def save(self, path: str, overwrite: bool = False) -> None:
         """Save the params (metadata only) under the reference's estimator class."""
@@ -100,11 +107,12 @@ class ExtendedIsolationForestModel(IsolationForestModel):
 
     @classmethod
     def load(
-        cls, path: str, device=None, require_success: bool = True, verify="auto"
+        cls, path: str, device=None, require_success: bool = True, verify="auto", on_corrupt: str = "raise"
     ) -> "ExtendedIsolationForestModel":
         """Load an extended model directory saved in the reference layout
-        onto ``device`` (default: the card); ``verify`` checks its manifest
-        (``"auto"``: when there is one)."""
+        onto ``device`` (default: the card); ``verify`` and ``on_corrupt``
+        as :meth:`IsolationForestModel.load`."""
         from ..io.persistence import load_extended_model
 
-        return load_extended_model(path, device=device, require_success=require_success, verify=verify)
+        return load_extended_model(path, device=device, require_success=require_success, verify=verify,
+                                   on_corrupt=on_corrupt)

@@ -12,6 +12,15 @@ run on the host. The forest is the JAX package's for the same data and seed
 (the draws are its threefry streams), up to Gumbel near-ties where torch's
 ``log`` and XLA's differ by an ulp.
 
+``fit(..., checkpoint_dir=...)`` grows the trees in blocks and seals each
+block on disk (:mod:`..resilience.checkpoint`); a killed fit resumes from
+its last sealed block, bitwise equal to an uninterrupted fit, and a
+checkpoint directory one package wrote resumes in the other. After the
+threshold, ``fit`` captures the drift baseline (``baseline=True``, unless
+``ISOFOREST_TPU_BASELINE`` turns it off) from a strided subsample of the
+training rows, scored through the walk kernel; ``enable_monitoring`` then
+folds every scored batch into a :class:`~..telemetry.monitor.ScoreMonitor`.
+
 ``fit``/``transform`` take an ``[N, F]`` tensor or array, or a pandas
 DataFrame with a vector-valued features column; ``transform`` of a frame
 returns the frame with ``outlierScore`` and ``predictedLabel`` appended
@@ -21,6 +30,7 @@ returns the frame with ``outlierScore`` and ``predictedLabel`` appended
 from __future__ import annotations
 
 import math
+import os
 import uuid
 from typing import Optional
 
@@ -28,7 +38,7 @@ import numpy as np
 import torch
 
 from ..ops import prng
-from ..ops.bagging import feature_subsets, per_tree_keys
+from ..ops.bagging import bagged_indices, feature_subsets, per_tree_keys
 from ..ops.ext_growth import grow_extended_forest, grow_extended_forest_fused
 from ..ops.quantile import contamination_threshold, observed_contamination
 from ..ops.traversal import score_matrix
@@ -68,6 +78,106 @@ def _resolve_subsample_trees(subsample_trees, num_estimators: int) -> int:
 def _seed_key(params: IsolationForestParams, device) -> torch.Tensor:
     """The fit's root key, from the seed's low 32 bits as the JAX package takes it."""
     return prng.PRNGKey(params.random_seed & 0xFFFFFFFF, device=device)
+
+
+# The drift baseline of a fit scores at most this many training rows, a
+# deterministic stride of them (no draw: a checkpointed fit and a plain one
+# capture the same baseline); ISOFOREST_TPU_BASELINE=0 turns capture off,
+# in both packages.
+_BASELINE_ENV = "ISOFOREST_TPU_BASELINE"
+_BASELINE_MAX_ROWS = 65536
+
+
+def _baseline_env_enabled() -> bool:
+    return os.environ.get(_BASELINE_ENV, "1").strip().lower() not in ("0", "false", "off", "no")
+
+
+def _capture_fit_baseline(model, X: torch.Tensor) -> None:
+    """Set ``model.baseline`` from the training rows: every
+    ``ceil(N / 65,536)``-th row is scored through the walk kernel (named,
+    not ``"auto"``), then its scores and rows are copied to the host once
+    and summarised (:func:`~..telemetry.monitor.capture_baseline`)."""
+    from ..telemetry.monitor import capture_baseline
+
+    n = int(X.shape[0])
+    step = max(1, -(-n // _BASELINE_MAX_ROWS))
+    sub = X[::step].contiguous()
+    scores = score_matrix(model.forest, sub, model.num_samples, strategy="walk", device=model.device,
+                          cache=model._cache)
+    model.baseline = capture_baseline(scores, sub, total_rows=n)
+
+
+def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, key, X: torch.Tensor, *, params,
+                    resolved, height: int, extension_level=None, on_block=None, bag_override=None):
+    """Growth of either estimator in checkpointed blocks of trees:
+    ``(forest, FitCheckpoint)``.
+
+    It equals the fused fit bitwise: the key splits as ``(k_bag, k_feat,
+    k_grow)`` as there, and the bags, feature subsets and per-tree keys of
+    the whole ensemble are drawn once and sliced per block (the samplers'
+    dispatch depends on the tree count). Each block is grown on ``X``'s
+    device, copied to the host and sealed; the fingerprint hashes the host
+    copy of ``X``, one device-to-host copy per fit. ``bag_override``
+    replaces the bagging draw (``fit_from_sample``); ``on_block(index,
+    start, stop, resumed)`` runs after each block is durable.
+    """
+    from ..ops.ext_growth import ExtendedForest
+    from ..resilience import checkpoint as ckpt
+    from ..resilience import faults
+
+    extended = extension_level is not None
+    forest_cls = ExtendedForest if extended else StandardForest
+    num_trees = params.num_estimators
+    block_trees = ckpt.resolve_block_size(checkpoint_every, num_trees)
+    num_rows, num_features_total = int(X.shape[0]), int(X.shape[1])
+    fingerprint = ckpt.fit_fingerprint(
+        kind="extended" if extended else "standard",
+        random_seed=params.random_seed,
+        num_estimators=num_trees,
+        bootstrap=params.bootstrap,
+        num_samples=resolved.num_samples,
+        num_features=resolved.num_features,
+        height=height,
+        total_rows=num_rows,
+        total_features=num_features_total,
+        block_trees=block_trees,
+        data_sha256=ckpt.data_fingerprint(X.cpu().numpy()),
+        extension_level=extension_level,
+    )
+    state = ckpt.FitCheckpoint(checkpoint_dir, fingerprint)
+    state.begin(resume=resume)
+
+    k_bag, k_feat, k_grow = prng.split(key, 3)
+    if bag_override is not None:
+        bag = bag_override
+    else:
+        bag = bagged_indices(k_bag, num_rows, resolved.num_samples, num_trees, params.bootstrap)
+    fidx = feature_subsets(k_feat, num_features_total, resolved.num_features, num_trees)
+    tree_keys = per_tree_keys(k_grow, num_trees)
+
+    parts = []
+    for index, start, stop in ckpt.block_ranges(num_trees, block_trees):
+        arrays = state.load_block(index, start, stop)
+        resumed = arrays is not None
+        if arrays is None:
+            trees = slice(start, stop)
+            if extended:
+                block = grow_extended_forest(tree_keys[trees], X, bag[trees], fidx[trees], height, extension_level)
+            else:
+                block = grow_forest(tree_keys[trees], X, bag[trees], fidx[trees], height)
+            arrays = {field: getattr(block, field).cpu().numpy() for field in forest_cls._fields}
+            state.seal_block(index, start, stop, arrays)
+            faults.check_fit_block(index)  # a kill lands after the seal
+        if on_block is not None:
+            on_block(index, start, stop, resumed)
+        parts.append(arrays)
+    logger.info(
+        "checkpointed fit: %d/%d block(s) grown this session, %d resumed from %s",
+        state.blocks_written, len(parts), state.blocks_loaded, checkpoint_dir,
+    )
+    forest = forest_cls(**{field: torch.from_numpy(np.concatenate([part[field] for part in parts])).to(X.device)
+                           for field in forest_cls._fields})
+    return forest, state
 
 
 class _ParamSetters:
@@ -120,22 +230,40 @@ class IsolationForest(_ParamSetters):
         self.uid = uid or _new_uid("isolation-forest")
         self.device = device
 
-    def fit(self, data, nonfinite: str = "warn", subsample_trees=None) -> "IsolationForestModel":
+    def fit(self, data, nonfinite: str = "warn", subsample_trees=None, checkpoint_dir: Optional[str] = None,
+            checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,
+            block_callback=None) -> "IsolationForestModel":
         """Fit on an ``[N, F]`` tensor, array or DataFrame. ``nonfinite`` is
         the NaN/inf policy (``"warn"``, ``"raise"``, ``"allow"``);
         ``subsample_trees`` grows only that many (int) or that share
         (float) of ``numEstimators`` trees, and the model records the
-        smaller ensemble."""
-        return _fit_impl(self, data, extended=False, nonfinite=nonfinite, subsample_trees=subsample_trees)
+        smaller ensemble.
 
-    def fit_from_sample(self, X_sample, bag, nonfinite: str = "warn") -> "IsolationForestModel":
+        ``checkpoint_dir`` grows the trees in blocks of ``checkpoint_every``
+        (default 32) and seals each one there; a killed fit run again with
+        ``resume=True`` continues from the last sealed block, to a forest
+        bitwise equal to an uninterrupted fit's. A resume with other
+        params, data or block size raises
+        :class:`~..resilience.checkpoint.CheckpointMismatchError`.
+        ``block_callback(index, start, stop, resumed)`` runs after each
+        block is durable. ``baseline`` (and ``ISOFOREST_TPU_BASELINE``)
+        captures the drift baseline the model saves as ``_BASELINE.json``."""
+        return _fit_impl(self, data, extended=False, nonfinite=nonfinite, subsample_trees=subsample_trees,
+                         checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback), baseline=baseline)
+
+    def fit_from_sample(self, X_sample, bag, nonfinite: str = "warn", checkpoint_dir: Optional[str] = None,
+                        checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,
+                        block_callback=None) -> "IsolationForestModel":
         """Fit from a materialised sample: ``X_sample [U, F]`` and the bags
         ``[numEstimators, numSamples]`` that index it. The bag replaces the
         bagging draw; feature subsets and growth keys come from the same
         ``(k_bag, k_feat, k_grow)`` split as :meth:`fit`, so two fits of one
         sample are bitwise equal. ``maxSamples`` must be a count; the
-        threshold comes from the sample's own scores."""
-        return _fit_from_sample_impl(self, X_sample, bag, extended=False, nonfinite=nonfinite)
+        threshold and the baseline come from the sample's own rows. The
+        checkpoint and baseline knobs are :meth:`fit`'s."""
+        return _fit_from_sample_impl(self, X_sample, bag, extended=False, nonfinite=nonfinite,
+                                     checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback),
+                                     baseline=baseline)
 
     def save(self, path: str, overwrite: bool = False) -> None:
         """Save the params (metadata only, IsolationForest.scala:114-125)."""
@@ -151,10 +279,10 @@ class IsolationForest(_ParamSetters):
         return cls(params=params, uid=uid, device=device)
 
 
-def _grow_and_threshold(p, X, resolved, extended: bool, grow) -> "IsolationForestModel":
+def _grow_and_threshold(p, X, resolved, extended: bool, grow, baseline: bool) -> "IsolationForestModel":
     """The model of either estimator: ``grow(height, level)`` its forest
-    (``level``: the resolved ``extensionLevel`` of an EIF, else None), then
-    threshold it on ``X``."""
+    and checkpoint (``level``: the resolved ``extensionLevel`` of an EIF,
+    else None), then threshold it on ``X`` and capture its baseline."""
     h = height_limit(resolved.num_samples)
     common = dict(params=p, num_samples=resolved.num_samples, num_features=resolved.num_features,
                   total_num_features=int(X.shape[1]))
@@ -163,16 +291,24 @@ def _grow_and_threshold(p, X, resolved, extended: bool, grow) -> "IsolationFores
 
         level = resolve_extension_level(p.extension_level, resolved.num_features)
         logger.info("resolved extensionLevel=%d", level)
-        model = ExtendedIsolationForestModel(forest=grow(h, level), extension_level=level, **common)
+        forest, fit_checkpoint = grow(h, level)
+        model = ExtendedIsolationForestModel(forest=forest, extension_level=level, **common)
     else:
-        model = IsolationForestModel(forest=grow(h, None), **common)
+        forest, fit_checkpoint = grow(h, None)
+        model = IsolationForestModel(forest=forest, **common)
+    model.fit_checkpoint = fit_checkpoint
     _compute_and_set_threshold(model, X)
+    if baseline and _baseline_env_enabled():
+        _capture_fit_baseline(model, X)
     return model
 
 
-def _fit_impl(est, data, *, extended: bool, nonfinite: str, subsample_trees) -> "IsolationForestModel":
+def _fit_impl(est, data, *, extended: bool, nonfinite: str, subsample_trees, checkpoint,
+              baseline: bool) -> "IsolationForestModel":
     """``fit`` of both estimators on one device: bags, feature subsets and
-    growth from one key (the fused program), then the threshold."""
+    growth from one key (the fused program, or checkpointed blocks when
+    ``checkpoint = (dir, every, resume, callback)`` names a directory),
+    then the threshold and the baseline."""
     dev = resolve_device(est.device)
     p = est.params
     if subsample_trees is not None:
@@ -190,17 +326,24 @@ def _fit_impl(est, data, *, extended: bool, nonfinite: str, subsample_trees) -> 
     shape = dict(num_samples=resolved.num_samples, num_trees=p.num_estimators, bootstrap=p.bootstrap,
                  num_features=resolved.num_features)
 
+    checkpoint_dir, checkpoint_every, resume, block_callback = checkpoint
+
     def grow(h, level):
+        if checkpoint_dir is not None:
+            return _blockwise_grow(checkpoint_dir, resume, checkpoint_every, key, X, params=p, resolved=resolved,
+                                   height=h, extension_level=level, on_block=block_callback)
         if level is None:
-            return grow_forest_fused(key, X, **shape, height=h)
-        return grow_extended_forest_fused(key, X, **shape, height=h, extension_level=level)
+            return grow_forest_fused(key, X, **shape, height=h), None
+        return grow_extended_forest_fused(key, X, **shape, height=h, extension_level=level), None
 
-    return _grow_and_threshold(p, X, resolved, extended, grow)
+    return _grow_and_threshold(p, X, resolved, extended, grow, baseline)
 
 
-def _fit_from_sample_impl(est, X_sample, bag, *, extended: bool, nonfinite: str) -> "IsolationForestModel":
+def _fit_from_sample_impl(est, X_sample, bag, *, extended: bool, nonfinite: str, checkpoint,
+                         baseline: bool) -> "IsolationForestModel":
     """``fit_from_sample`` of both estimators: the given bag replaces the
-    bagging draw; feature subsets and growth keys come from the fit's key."""
+    bagging draw; feature subsets and growth keys come from the fit's key
+    (checkpointed as :func:`_fit_impl`)."""
     dev = resolve_device(est.device)
     p = est.params
     X, _ = extract_features(X_sample, p.features_col, nonfinite=nonfinite, device=dev)
@@ -226,17 +369,22 @@ def _fit_from_sample_impl(est, X_sample, bag, *, extended: bool, nonfinite: str)
         raise ValueError(f"bag indexes rows outside the sample matrix [0, {u}) (min={lo}, max={hi})")
     # max(U, S) keeps the small-dataset cap from shrinking S below the bag width
     resolved = resolve_params(p, f, max(u, num_samples))
-    _, k_feat, k_grow = prng.split(_seed_key(p, dev), 3)  # k_bag is replaced by the bag
-    fidx = feature_subsets(k_feat, f, resolved.num_features, p.num_estimators)
-    tree_keys = per_tree_keys(k_grow, p.num_estimators)
+    key = _seed_key(p, dev)
     bag = bag.to(torch.int32)
+    checkpoint_dir, checkpoint_every, resume, block_callback = checkpoint
 
     def grow(h, level):
+        if checkpoint_dir is not None:
+            return _blockwise_grow(checkpoint_dir, resume, checkpoint_every, key, X, params=p, resolved=resolved,
+                                   height=h, extension_level=level, on_block=block_callback, bag_override=bag)
+        _, k_feat, k_grow = prng.split(key, 3)  # k_bag is replaced by the bag
+        fidx = feature_subsets(k_feat, f, resolved.num_features, p.num_estimators)
+        tree_keys = per_tree_keys(k_grow, p.num_estimators)
         if level is None:
-            return grow_forest(tree_keys, X, bag, fidx, h)
-        return grow_extended_forest(tree_keys, X, bag, fidx, h, level)
+            return grow_forest(tree_keys, X, bag, fidx, h), None
+        return grow_extended_forest(tree_keys, X, bag, fidx, h, level), None
 
-    return _grow_and_threshold(p, X, resolved, extended, grow)
+    return _grow_and_threshold(p, X, resolved, extended, grow, baseline)
 
 
 def _compute_and_set_threshold(model: "IsolationForestModel", X: torch.Tensor) -> None:
@@ -288,8 +436,17 @@ class IsolationForestModel:
         self.total_num_features = int(total_num_features)
         self.outlier_score_threshold = float(outlier_score_threshold)
         self.uid = uid or _new_uid("isolation-forest")
-        # kernel tables and the width floor, built on first score
+        # kernel tables and the width floor, built on first score; one
+        # model's own, so a salvaged model never reads an intact one's tables
         self._cache: dict = {}
+        # on_corrupt="drop" loads: which trees were lost (LoadReport)
+        self.load_report = None
+        # checkpointed fits: the FitCheckpoint (blocks_written, blocks_loaded)
+        self.fit_checkpoint = None
+        # the drift baseline: captured by fit, read from _BASELINE.json on load
+        self.baseline = None
+        # the drift monitor every score() folds into, while attached
+        self._monitor = None
 
     @property
     def device(self) -> torch.device:
@@ -310,18 +467,21 @@ class IsolationForestModel:
         nonfinite: str = "warn",
         strategy: str = "auto",
         chunk_size: Optional[int] = None,
+        fold_monitor: bool = True,
     ) -> torch.Tensor:
         """Outlier scores ``2^(-E[h(x)]/c(n))`` of an ``[N, F]`` tensor, array
         or DataFrame, as a float32 tensor on the model's device.
         ``nonfinite``: NaN/inf policy (``"warn"``/``"raise"``/``"allow"``);
-        ``strategy``: ``"auto"``, ``"walk"`` or ``"dense"``."""
+        ``strategy``: ``"auto"``, ``"walk"`` or ``"dense"``. With a drift
+        monitor attached the batch is folded into it after scoring, unless
+        ``fold_monitor=False``; with none attached nothing more runs."""
         X, _ = extract_features(X, self.params.features_col, nonfinite=nonfinite, device=self.device)
         expected = (
             self.total_num_features
             if self.total_num_features != UNKNOWN_TOTAL_NUM_FEATURES
             else None
         )
-        return score_matrix(
+        scores = score_matrix(
             self.forest,
             X,
             self.num_samples,
@@ -331,6 +491,61 @@ class IsolationForestModel:
             device=self.device,
             cache=self._cache,
         )
+        monitor = self._monitor
+        if monitor is not None and fold_monitor:
+            monitor.observe(scores, X)
+        return scores
+
+    def degradations(self):
+        """The degradation events of this process (the ladder of
+        :mod:`..resilience.degradation`); this model's load details are in
+        ``self.load_report``."""
+        from ..resilience.degradation import degradations
+
+        return degradations()
+
+    def diagnostics(self) -> dict:
+        """Structure of the forest in plain JSON types
+        (:func:`~..telemetry.diagnostics.forest_diagnostics`)."""
+        from ..telemetry.diagnostics import forest_diagnostics
+
+        return forest_diagnostics(self)
+
+    def enable_monitoring(self, threshold: Optional[float] = None, **monitor_kwargs):
+        """Attach a drift monitor (:class:`~..telemetry.monitor.ScoreMonitor`,
+        ``threshold`` and ``monitor_kwargs`` its own) and return it: every
+        later :meth:`score` folds its batch on the model's device. Needs a
+        baseline: a fit with capture on, or a directory with ``_BASELINE.json``."""
+        if self.baseline is None:
+            raise ValueError(
+                "this model has no drift baseline: it was loaded from a "
+                "legacy directory (no _BASELINE.json sidecar) or fitted "
+                "with baseline capture disabled — refit, or re-save from a "
+                "fit with baseline=True, to enable monitoring"
+            )
+        from ..telemetry.monitor import ScoreMonitor
+
+        if threshold is not None:
+            monitor_kwargs["threshold"] = threshold
+        self._monitor = ScoreMonitor(self.baseline, **monitor_kwargs)
+        return self._monitor
+
+    def rebind_monitoring(self, baseline=None):
+        """Re-arm the attached monitor against ``baseline`` (default: the
+        model's own): its counts are dropped and every alert re-arms; the
+        monitor object stays and is returned."""
+        monitor = self._monitor
+        if monitor is None:
+            raise ValueError("no drift monitor attached; call enable_monitoring() first")
+        target = baseline if baseline is not None else self.baseline
+        if target is None:
+            raise ValueError("no baseline to rebind to: this model carries none and no explicit baseline was given")
+        monitor.rebind(target)
+        return monitor
+
+    def disable_monitoring(self) -> None:
+        """Detach the drift monitor; its counts are discarded."""
+        self._monitor = None
 
     def predict(self, scores: torch.Tensor) -> torch.Tensor:
         """Labels: ``score >= threshold`` when a threshold is set, else all
@@ -369,10 +584,13 @@ class IsolationForestModel:
         save_standard_model(self, path, overwrite=overwrite)
 
     @classmethod
-    def load(cls, path: str, device=None, require_success: bool = True, verify="auto") -> "IsolationForestModel":
+    def load(cls, path: str, device=None, require_success: bool = True, verify="auto",
+             on_corrupt: str = "raise") -> "IsolationForestModel":
         """Load a model directory saved in the reference layout onto
         ``device`` (default: the card); ``verify`` checks its manifest
-        (``"auto"``: when there is one)."""
+        (``"auto"``: when there is one); ``on_corrupt="drop"`` salvages the
+        intact trees of a damaged one and sets ``load_report``."""
         from ..io.persistence import load_standard_model
 
-        return load_standard_model(path, device=device, require_success=require_success, verify=verify)
+        return load_standard_model(path, device=device, require_success=require_success, verify=verify,
+                                   on_corrupt=on_corrupt)

@@ -1,0 +1,117 @@
+"""Fault injection at the seams of the port (``isoforest_tpu/resilience/faults.py``).
+
+Production code consults this module at two seams, each a no-op when
+nothing is armed:
+
+* :func:`filter_read_bytes`, in ``io.avro``'s container read:
+  ``corrupt_avro`` flips one byte of a data part file as it is read
+  (``=<offset>``, default three quarters in) and ``truncate_data`` reads a
+  prefix (``=<bytes>``, default half), the torn-download case;
+* :func:`check_fit_block`, in a checkpointed fit: ``kill_fit_after_block=<k>``
+  raises right after block ``k`` is sealed, the preemption a resume exists for.
+
+Faults arm with the :func:`inject` context manager or the
+``ISOFOREST_TPU_FAULTS`` environment variable (comma-separated ``name`` or
+``name=value`` items), which the JAX package reads too, so one setting
+arms the same seams in both packages; names of seams the port does not
+have are ignored there.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Dict, List, Optional, Union
+
+FAULTS_ENV = "ISOFOREST_TPU_FAULTS"
+
+KNOWN_FAULTS = frozenset({"corrupt_avro", "truncate_data", "kill_fit_after_block"})
+
+FaultValue = Union[bool, int, str]
+
+
+class FaultInjectedError(RuntimeError):
+    """Raised by an armed fault at its seam."""
+
+
+_STACK: List[Dict[str, FaultValue]] = []
+
+
+def _parse_env() -> Dict[str, FaultValue]:
+    out: Dict[str, FaultValue] = {}
+    for item in os.environ.get(FAULTS_ENV, "").split(","):
+        item = item.strip()
+        if item:
+            name, _, value = item.partition("=")
+            out[name.strip()] = value.strip() if value else True
+    return out
+
+
+@contextlib.contextmanager
+def inject(**faults: FaultValue):
+    """Arm the given faults for the extent of the block::
+
+        with faults.inject(corrupt_avro=True):
+            model = load_model(path, on_corrupt="drop")
+    """
+    unknown = set(faults) - KNOWN_FAULTS
+    if unknown:
+        raise ValueError(f"unknown fault(s) {sorted(unknown)}; known: {sorted(KNOWN_FAULTS)}")
+    _STACK.append(dict(faults))
+    try:
+        yield
+    finally:
+        _STACK.pop()
+
+
+def get(name: str) -> Optional[FaultValue]:
+    """The fault's value: the innermost :func:`inject` frame, then the
+    environment; None when it is not armed."""
+    for frame in reversed(_STACK):
+        if name in frame:
+            return frame[name]
+    return _parse_env().get(name)
+
+
+def active(name: str) -> bool:
+    value = get(name)
+    return value is not None and value is not False
+
+
+def _flip_at(data: bytes, offset: int) -> bytes:
+    offset = max(0, min(offset, len(data) - 1))
+    out = bytearray(data)
+    out[offset] ^= 0x5A  # nonzero, so the byte always changes
+    return bytes(out)
+
+
+def filter_read_bytes(path: str, data: bytes) -> bytes:
+    """Apply the armed read faults to a data part file's bytes as read;
+    other files pass untouched."""
+    if not _STACK and FAULTS_ENV not in os.environ:
+        return data
+    if not os.path.basename(path).endswith(".avro") or not data:
+        return data
+    corrupt = get("corrupt_avro")
+    if corrupt is not None and corrupt is not False:
+        offset = int(corrupt) if str(corrupt).isdigit() else (len(data) * 3) // 4
+        data = _flip_at(data, offset)
+    truncate = get("truncate_data")
+    if truncate is not None and truncate is not False:
+        keep = int(truncate) if str(truncate).isdigit() else len(data) // 2
+        data = data[: max(1, min(keep, len(data)))]
+    return data
+
+
+def check_fit_block(block_index: int) -> None:
+    """Raise :class:`FaultInjectedError` when ``kill_fit_after_block`` names
+    the block that was just sealed: its checkpoint is durable, as after a
+    real preemption between blocks."""
+    value = get("kill_fit_after_block")
+    if value is None or value is False:
+        return
+    if int(value) == int(block_index):
+        raise FaultInjectedError(
+            f"injected fault: fit killed after sealing block {block_index} "
+            f"(kill_fit_after_block={value!r}) — resume with fit(..., resume=True)"
+        )
