@@ -136,8 +136,9 @@ Then the model's lifecycle around the kernels, on the card:
     rows keep score PSI < 0.1 with no alert, a shifted batch (``X * 3 + 5``)
     alerts once for each stream past its threshold and a second one not
     again, the gauge is set, the card's fold equals the CPU's on the same
-    values (NaN, +-inf and 1e30 included), and latency at 1, 64, 4,096 and
-    1M rows with the monitor on and off (median of 21);
+    values (NaN, +-inf and 1e30 included), latency at 1, 64, 4,096 and
+    1M rows with the monitor on and off (median of 21), and torch.profiler
+    around one 1-row call with the monitor off and on;
 22. checkpoint: the 100-tree 1M-row fit and the mammography EIF fit with
     ``checkpoint_every=32``, and each killed after block 1 and resumed,
     equal to the plain fit bitwise; fit, seal and fingerprint times;
@@ -218,9 +219,10 @@ def bound(nbytes: float, ops: float):
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def profile_call(fn) -> dict:
+def profile_call(fn, host_top: int = 0) -> dict:
     """Device activity by name from torch.profiler around one synchronised
-    call, beside the call's wall time."""
+    call, beside the call's wall time; with ``host_top``, also the number of
+    device activities and the host operations that took the most self time."""
     import torch
 
     fn()
@@ -236,10 +238,16 @@ def profile_call(fn) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_ms": wall_ms, "device_ms": sum(device.values()),
-            "device_busy_share": sum(device.values()) / wall_ms,
-            "htod_in_trace": any("HtoD" in name for name in device),
-            "top_device_ms": [[k[:80], v] for k, v in top]}
+    out = {"wall_ms": wall_ms, "device_ms": sum(device.values()),
+           "device_busy_share": sum(device.values()) / wall_ms,
+           "htod_in_trace": any("HtoD" in name for name in device),
+           "top_device_ms": [[k[:80], v] for k, v in top]}
+    if host_top:
+        ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+        out["device_activities"] = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        out["host_ops_self_ms_total"] = sum(a.self_cpu_time_total for a in ops) / 1e3
+        out["host_ops_top"] = [[a.key[:60], a.count, a.self_cpu_time_total / 1e3] for a in ops[:host_top]]
+    return out
 
 
 def breakdown_phase(phase: str, model, X) -> dict:
@@ -1220,12 +1228,17 @@ def model_phases(dev, X_m, X_big) -> None:
                         model.score(batch).cpu()
                         lat.append((time.perf_counter() - t0) * 1e3)
                     latency[f"{'on' if on else 'off'}_{rows}"] = statistics.median(lat)
+            # where a monitored 1-row call spends its time, against an
+            # unmonitored one (the monitor is off after the loop above)
+            one_row = {"off": profile_call(lambda: model.score(X_big[:1]).cpu(), host_top=8)}
+            model.enable_monitoring()
+            one_row["on"] = profile_call(lambda: model.score(X_big[:1]).cpu(), host_top=8)
             model.disable_monitoring()
             out[kind] = {"kernel_launches": launched, "training": {"score_psi": trained["score"]["psi"],
                                                                    "features_psi": trained["features"]},
                          "shifted_alerts": first["alerts"], "second_batch_new_alerts": len(second["alerts"])
                          - len(first["alerts"]), "score_psi_gauge": gauge, "card_fold_equals_cpu": fold_equal,
-                         "latency_median_ms": latency}
+                         "latency_median_ms": latency, "one_row_profile": one_row}
         emit(out)
 
         # 22. checkpoint: checkpointed and killed-then-resumed fits against

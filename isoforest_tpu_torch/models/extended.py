@@ -4,7 +4,7 @@ and the fitted :class:`ExtendedIsolationForestModel`
 
 ``ExtendedIsolationForest(...).fit(X)`` runs on one device through the
 standard estimator's path (bags, feature subsets, then growth by random
-hyperplanes, :func:`~isoforest_tpu_torch.ops.ext_growth.grow_extended_forest_fused`,
+hyperplanes, :func:`~isoforest_tpu_torch.ops.ext_growth.grow_extended_forest`,
 then the contamination threshold over the training rows' scores, through
 the EIF walk kernel on the card). ``extensionLevel`` resolves at fit
 (unset: ``numFeatures - 1``, fully extended); the estimator keeps its own

@@ -2,9 +2,10 @@
 the fitted :class:`IsolationForestModel` (``isoforest_tpu/models/isolation_forest.py``).
 
 ``IsolationForest(...).fit(X)`` runs on one device: the bags, feature
-subsets, per-level statistics and draws of growth
-(:func:`~isoforest_tpu_torch.ops.tree_growth.grow_forest_fused`; the
-extended estimator shares this path, :func:`_fit_impl`), then the
+subsets and per-tree keys drawn once from the fit's key
+(:func:`~isoforest_tpu_torch.ops.bagging.ensemble_draws`), growth
+(:func:`~isoforest_tpu_torch.ops.tree_growth.grow_forest`; the extended
+estimator shares this path, :func:`_grow`), then the
 contamination threshold over the training rows' scores, which go through
 the model's own scoring path (the walk kernel on the card). Only the
 parameters' resolution, the threshold's one float and a save's Avro encode
@@ -38,11 +39,11 @@ import numpy as np
 import torch
 
 from ..ops import prng
-from ..ops.bagging import bagged_indices, feature_subsets, per_tree_keys
-from ..ops.ext_growth import grow_extended_forest, grow_extended_forest_fused
+from ..ops.bagging import ensemble_draws
+from ..ops.ext_growth import grow_extended_forest
 from ..ops.quantile import contamination_threshold, observed_contamination
 from ..ops.traversal import score_matrix
-from ..ops.tree_growth import StandardForest, grow_forest, grow_forest_fused
+from ..ops.tree_growth import StandardForest, grow_forest
 from ..utils.device import resolve_device
 from ..utils.math import height_limit
 from ..utils.params import IsolationForestParams, resolve_extension_level, resolve_params
@@ -107,19 +108,40 @@ def _capture_fit_baseline(model, X: torch.Tensor) -> None:
     model.baseline = capture_baseline(scores, sub, total_rows=n)
 
 
-def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, key, X: torch.Tensor, *, params,
-                    resolved, height: int, extension_level=None, on_block=None, bag_override=None):
+def _grow_block(tree_keys, X: torch.Tensor, bag, fidx, height: int, extension_level):
+    """Grow the trees of these draws: standard, or EIF at ``extension_level``."""
+    if extension_level is None:
+        return grow_forest(tree_keys, X, bag, fidx, height)
+    return grow_extended_forest(tree_keys, X, bag, fidx, height, extension_level)
+
+
+def _grow(key, X: torch.Tensor, *, params, resolved, height: int, extension_level, checkpoint, bag=None):
+    """The forest of either estimator and its checkpoint: the ensemble's
+    draws from ``key`` (``bag`` replaces the bagging draw of a fit from a
+    sample), then growth in one call, or in sealed blocks when
+    ``checkpoint = (dir, every, resume, callback)`` names a directory
+    (:func:`_blockwise_grow`)."""
+    draws = ensemble_draws(key, X, num_samples=resolved.num_samples, num_trees=params.num_estimators,
+                           bootstrap=params.bootstrap, num_features=resolved.num_features, bag=bag)
+    checkpoint_dir, checkpoint_every, resume, block_callback = checkpoint
+    if checkpoint_dir is None:
+        tree_keys, bag, fidx = draws
+        return _grow_block(tree_keys, X, bag, fidx, height, extension_level), None
+    return _blockwise_grow(checkpoint_dir, resume, checkpoint_every, X, draws, params=params, resolved=resolved,
+                           height=height, extension_level=extension_level, on_block=block_callback)
+
+
+def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, X: torch.Tensor, draws, *, params,
+                    resolved, height: int, extension_level=None, on_block=None):
     """Growth of either estimator in checkpointed blocks of trees:
     ``(forest, FitCheckpoint)``.
 
-    It equals the fused fit bitwise: the key splits as ``(k_bag, k_feat,
-    k_grow)`` as there, and the bags, feature subsets and per-tree keys of
-    the whole ensemble are drawn once and sliced per block (the samplers'
-    dispatch depends on the tree count). Each block is grown on ``X``'s
-    device, copied to the host and sealed; the fingerprint hashes the host
-    copy of ``X``, one device-to-host copy per fit. ``bag_override``
-    replaces the bagging draw (``fit_from_sample``); ``on_block(index,
-    start, stop, resumed)`` runs after each block is durable.
+    It equals the plain fit bitwise: each block grows a slice of the
+    ensemble's ``draws`` (:func:`~..ops.bagging.ensemble_draws`). Each
+    block is grown on ``X``'s device, copied to the host and sealed; the
+    fingerprint hashes the host copy of ``X``, one device-to-host copy per
+    fit. ``on_block(index, start, stop, resumed)`` runs after each block is
+    durable.
     """
     from ..ops.ext_growth import ExtendedForest
     from ..resilience import checkpoint as ckpt
@@ -129,7 +151,6 @@ def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, key, X:
     forest_cls = ExtendedForest if extended else StandardForest
     num_trees = params.num_estimators
     block_trees = ckpt.resolve_block_size(checkpoint_every, num_trees)
-    num_rows, num_features_total = int(X.shape[0]), int(X.shape[1])
     fingerprint = ckpt.fit_fingerprint(
         kind="extended" if extended else "standard",
         random_seed=params.random_seed,
@@ -138,8 +159,8 @@ def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, key, X:
         num_samples=resolved.num_samples,
         num_features=resolved.num_features,
         height=height,
-        total_rows=num_rows,
-        total_features=num_features_total,
+        total_rows=int(X.shape[0]),
+        total_features=int(X.shape[1]),
         block_trees=block_trees,
         data_sha256=ckpt.data_fingerprint(X.cpu().numpy()),
         extension_level=extension_level,
@@ -147,24 +168,14 @@ def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, key, X:
     state = ckpt.FitCheckpoint(checkpoint_dir, fingerprint)
     state.begin(resume=resume)
 
-    k_bag, k_feat, k_grow = prng.split(key, 3)
-    if bag_override is not None:
-        bag = bag_override
-    else:
-        bag = bagged_indices(k_bag, num_rows, resolved.num_samples, num_trees, params.bootstrap)
-    fidx = feature_subsets(k_feat, num_features_total, resolved.num_features, num_trees)
-    tree_keys = per_tree_keys(k_grow, num_trees)
-
+    tree_keys, bag, fidx = draws
     parts = []
     for index, start, stop in ckpt.block_ranges(num_trees, block_trees):
         arrays = state.load_block(index, start, stop)
         resumed = arrays is not None
         if arrays is None:
             trees = slice(start, stop)
-            if extended:
-                block = grow_extended_forest(tree_keys[trees], X, bag[trees], fidx[trees], height, extension_level)
-            else:
-                block = grow_forest(tree_keys[trees], X, bag[trees], fidx[trees], height)
+            block = _grow_block(tree_keys[trees], X, bag[trees], fidx[trees], height, extension_level)
             arrays = {field: getattr(block, field).cpu().numpy() for field in forest_cls._fields}
             state.seal_block(index, start, stop, arrays)
             faults.check_fit_block(index)  # a kill lands after the seal
@@ -279,11 +290,16 @@ class IsolationForest(_ParamSetters):
         return cls(params=params, uid=uid, device=device)
 
 
-def _grow_and_threshold(p, X, resolved, extended: bool, grow, baseline: bool) -> "IsolationForestModel":
-    """The model of either estimator: ``grow(height, level)`` its forest
-    and checkpoint (``level``: the resolved ``extensionLevel`` of an EIF,
-    else None), then threshold it on ``X`` and capture its baseline."""
+def _grow_and_threshold(p, X, resolved, extended: bool, key, checkpoint, baseline: bool,
+                        bag=None) -> "IsolationForestModel":
+    """The model of either estimator: grow its forest (:func:`_grow`), then
+    threshold it on ``X`` and capture its baseline."""
     h = height_limit(resolved.num_samples)
+
+    def grow(level):
+        return _grow(key, X, params=p, resolved=resolved, height=h, extension_level=level, checkpoint=checkpoint,
+                     bag=bag)
+
     common = dict(params=p, num_samples=resolved.num_samples, num_features=resolved.num_features,
                   total_num_features=int(X.shape[1]))
     if extended:
@@ -291,10 +307,10 @@ def _grow_and_threshold(p, X, resolved, extended: bool, grow, baseline: bool) ->
 
         level = resolve_extension_level(p.extension_level, resolved.num_features)
         logger.info("resolved extensionLevel=%d", level)
-        forest, fit_checkpoint = grow(h, level)
+        forest, fit_checkpoint = grow(level)
         model = ExtendedIsolationForestModel(forest=forest, extension_level=level, **common)
     else:
-        forest, fit_checkpoint = grow(h, None)
+        forest, fit_checkpoint = grow(None)
         model = IsolationForestModel(forest=forest, **common)
     model.fit_checkpoint = fit_checkpoint
     _compute_and_set_threshold(model, X)
@@ -306,7 +322,7 @@ def _grow_and_threshold(p, X, resolved, extended: bool, grow, baseline: bool) ->
 def _fit_impl(est, data, *, extended: bool, nonfinite: str, subsample_trees, checkpoint,
               baseline: bool) -> "IsolationForestModel":
     """``fit`` of both estimators on one device: bags, feature subsets and
-    growth from one key (the fused program, or checkpointed blocks when
+    growth from one key (in one call, or in checkpointed blocks when
     ``checkpoint = (dir, every, resume, callback)`` names a directory),
     then the threshold and the baseline."""
     dev = resolve_device(est.device)
@@ -322,21 +338,7 @@ def _fit_impl(est, data, *, extended: bool, nonfinite: str, subsample_trees, che
         "resolved params: numSamples=%d numFeatures=%d (of %d rows x %d features)",
         resolved.num_samples, resolved.num_features, total_rows, total_feats,
     )
-    key = _seed_key(p, dev)
-    shape = dict(num_samples=resolved.num_samples, num_trees=p.num_estimators, bootstrap=p.bootstrap,
-                 num_features=resolved.num_features)
-
-    checkpoint_dir, checkpoint_every, resume, block_callback = checkpoint
-
-    def grow(h, level):
-        if checkpoint_dir is not None:
-            return _blockwise_grow(checkpoint_dir, resume, checkpoint_every, key, X, params=p, resolved=resolved,
-                                   height=h, extension_level=level, on_block=block_callback)
-        if level is None:
-            return grow_forest_fused(key, X, **shape, height=h), None
-        return grow_extended_forest_fused(key, X, **shape, height=h, extension_level=level), None
-
-    return _grow_and_threshold(p, X, resolved, extended, grow, baseline)
+    return _grow_and_threshold(p, X, resolved, extended, _seed_key(p, dev), checkpoint, baseline)
 
 
 def _fit_from_sample_impl(est, X_sample, bag, *, extended: bool, nonfinite: str, checkpoint,
@@ -369,22 +371,8 @@ def _fit_from_sample_impl(est, X_sample, bag, *, extended: bool, nonfinite: str,
         raise ValueError(f"bag indexes rows outside the sample matrix [0, {u}) (min={lo}, max={hi})")
     # max(U, S) keeps the small-dataset cap from shrinking S below the bag width
     resolved = resolve_params(p, f, max(u, num_samples))
-    key = _seed_key(p, dev)
-    bag = bag.to(torch.int32)
-    checkpoint_dir, checkpoint_every, resume, block_callback = checkpoint
-
-    def grow(h, level):
-        if checkpoint_dir is not None:
-            return _blockwise_grow(checkpoint_dir, resume, checkpoint_every, key, X, params=p, resolved=resolved,
-                                   height=h, extension_level=level, on_block=block_callback, bag_override=bag)
-        _, k_feat, k_grow = prng.split(key, 3)  # k_bag is replaced by the bag
-        fidx = feature_subsets(k_feat, f, resolved.num_features, p.num_estimators)
-        tree_keys = per_tree_keys(k_grow, p.num_estimators)
-        if level is None:
-            return grow_forest(tree_keys, X, bag, fidx, h), None
-        return grow_extended_forest(tree_keys, X, bag, fidx, h, level), None
-
-    return _grow_and_threshold(p, X, resolved, extended, grow, baseline)
+    return _grow_and_threshold(p, X, resolved, extended, _seed_key(p, dev), checkpoint, baseline,
+                               bag=bag.to(torch.int32))
 
 
 def _compute_and_set_threshold(model: "IsolationForestModel", X: torch.Tensor) -> None:

@@ -10,6 +10,8 @@ Everything is drawn on the device of the key, for all trees in one call.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import prng
@@ -106,6 +108,33 @@ def feature_subsets(
     (SharedTrainLogic.scala:300-304)."""
     perm = prng.permutation(per_tree_keys(key, num_trees), total_num_features)
     return torch.sort(perm[:, :num_features], dim=1).values.to(torch.int32)
+
+
+def ensemble_draws(
+    key: torch.Tensor,
+    X: torch.Tensor,
+    *,
+    num_samples: int,
+    num_trees: int,
+    bootstrap: bool,
+    num_features: int,
+    bag: Optional[torch.Tensor] = None,
+):
+    """Every draw of a fit's ensemble from its key, in the JAX package's
+    order: ``(k_bag, k_feat, k_grow) = split(key, 3)``, then the bags
+    (``bag``, when given, replaces them: a fit from a sample), the feature
+    subsets and the per-tree keys, as ``(tree_keys, bag, feat_idx)``.
+
+    A checkpointed fit slices these per block rather than drawing per
+    block, since the samplers' dispatch depends on the tree count; so the
+    plain fit and the checkpointed one grow the same trees.
+    """
+    num_rows, num_features_total = int(X.shape[0]), int(X.shape[1])
+    k_bag, k_feat, k_grow = prng.split(key, 3)
+    if bag is None:
+        bag = bagged_indices(k_bag, num_rows, num_samples, num_trees, bootstrap)
+    feat_idx = feature_subsets(k_feat, num_features_total, num_features, num_trees)
+    return per_tree_keys(k_grow, num_trees), bag, feat_idx
 
 
 def gather_tree_data(X: torch.Tensor, bag_idx: torch.Tensor, feat_idx: torch.Tensor) -> torch.Tensor:

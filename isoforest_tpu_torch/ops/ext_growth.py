@@ -37,7 +37,7 @@ import torch
 from ..utils.math import fma_f32, height_of
 from . import level_window as lw
 from . import prng
-from .bagging import bagged_indices, feature_subsets, gather_tree_data, per_tree_keys
+from .bagging import gather_tree_data
 from .tree_growth import _scatter
 
 # ``w / max(norm, NORM_FLOOR)`` (ext_growth.py:143)
@@ -332,25 +332,3 @@ def grow_extended_forest(
     glob = feat_idx.gather(1, local.clamp(min=0).reshape(t, -1).long()).reshape(local.shape)
     indices = torch.where(local >= 0, glob, -1).to(torch.int32)
     return ExtendedForest(indices=indices, weights=weights, offset=offset, num_instances=num_instances)
-
-
-def grow_extended_forest_fused(
-    key: torch.Tensor,
-    X: torch.Tensor,
-    *,
-    num_samples: int,
-    num_trees: int,
-    bootstrap: bool,
-    num_features: int,
-    height: int,
-    extension_level: int,
-) -> ExtendedForest:
-    """The whole single-device EIF fit from one key: ``(k_bag, k_feat,
-    k_grow) = split(key, 3)``, then bags, feature subsets, per-tree keys and
-    growth, in the JAX package's order, so the forest is stream-identical."""
-    num_rows, num_features_total = X.shape
-    k_bag, k_feat, k_grow = prng.split(key, 3)
-    bag = bagged_indices(k_bag, num_rows, num_samples, num_trees, bootstrap)
-    fidx = feature_subsets(k_feat, num_features_total, num_features, num_trees)
-    tree_keys = per_tree_keys(k_grow, num_trees)
-    return grow_extended_forest(tree_keys, X, bag, fidx, height, extension_level)

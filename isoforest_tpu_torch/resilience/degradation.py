@@ -5,7 +5,6 @@ recorded in a process-wide :class:`DegradationReport` (queryable with
 :func:`degradations` and ``model.degradations()``) with a count per
 reason, logged once per reason until :func:`reset_degradations`, counted on
 ``isoforest_degradations_total{reason}`` and appended to the event timeline.
-Under ``strict=True`` the rung raises :class:`DegradationError` instead.
 
 :data:`LADDER` holds only the rungs that hide no device and no kernel:
 
@@ -43,7 +42,7 @@ LADDER: Dict[str, str] = {
         "serving traffic drifted past the configured PSI threshold vs the "
         "training baseline: scores are still computed exactly (no kernel "
         "change) — the rung flags model-quality risk, not a compute "
-        "fallback, so strict scoring is deliberately unaffected"
+        "fallback"
     ),
     "dropped_trees": (
         "corrupt trees dropped at load -> valid smaller forest: path-length "
@@ -52,10 +51,6 @@ LADDER: Dict[str, str] = {
         "degrades gracefully with lost trees (FastForest, arxiv 2004.02423)"
     ),
 }
-
-
-class DegradationError(RuntimeError):
-    """A rung was required but ``strict=True`` forbids it."""
 
 
 @dataclasses.dataclass
@@ -78,8 +73,8 @@ class DegradationEvent:
 @dataclasses.dataclass(frozen=True)
 class LoadReport:
     """Outcome of an ``on_corrupt="drop"`` load: which trees were lost and
-    why. Set on the loaded model as ``model.load_report`` (None for a
-    strict load)."""
+    why. Set on the loaded model as ``model.load_report`` (None for an
+    ``on_corrupt="raise"`` load)."""
 
     path: str
     expected_trees: Optional[int]
@@ -154,16 +149,11 @@ def reset_degradations(reason: Optional[str] = None) -> None:
     _REPORT.reset(reason)
 
 
-def degrade(reason: str, from_: str, to: str, detail: str = "", strict: bool = False) -> str:
+def degrade(reason: str, from_: str, to: str, detail: str = "") -> str:
     """Take one rung; returns ``to``. Logs ``detail`` once per reason (until
-    reset) and records an event every time; with ``strict`` raises
-    :class:`DegradationError` instead."""
+    reset) and records an event every time."""
     if reason not in LADDER:
         raise ValueError(f"unknown degradation reason {reason!r}; known rungs: {', '.join(sorted(LADDER))}")
-    if strict:
-        raise DegradationError(
-            f"strict mode forbids the {reason!r} fallback ({from_} -> {to}): {detail or LADDER[reason]}"
-        )
     first = _REPORT.record(reason, from_, to, detail)
     _DEGRADATIONS_TOTAL.inc(reason=reason)
     record_event("degradation", reason=reason, **{"from": from_, "to": to}, detail=detail or LADDER[reason])

@@ -6,7 +6,7 @@ resource accounting are not ported."""
 
 from ._state import disable, enable, enabled
 from .events import Event, get_events, record_event, reset_events
-from .metrics import counter, gauge, histogram, registry, reset_metrics
+from .metrics import counter, gauge, registry, reset_metrics
 
 
 def reset() -> None:
@@ -16,6 +16,6 @@ def reset() -> None:
 
 
 __all__ = [
-    "Event", "counter", "disable", "enable", "enabled", "gauge", "get_events", "histogram",
+    "Event", "counter", "disable", "enable", "enabled", "gauge", "get_events",
     "record_event", "registry", "reset", "reset_events", "reset_metrics",
 ]

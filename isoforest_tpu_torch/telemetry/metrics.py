@@ -1,31 +1,19 @@
-"""Process-wide metrics registry: counters, gauges and fixed-bucket
-histograms (``isoforest_tpu/telemetry/metrics.py``, copied: it is stdlib only).
+"""Process-wide metrics registry: counters and gauges
+(``isoforest_tpu/telemetry/metrics.py``, copied: it is stdlib only).
 
-Prometheus-shaped: counters end in ``_total``, a histogram value lands in
-the first bucket whose upper bound is ``>= value`` (``le`` semantics), and
-every metric carries a fixed ``labelnames`` tuple with one series per label
-set. Histograms also keep exact ``min``/``max`` per series and derive
-p50/p95/p99 by linear interpolation inside the matched bucket, clamped to
-the observed range. Thread-safe. With telemetry off (:mod:`._state`) every
-mutator returns at once; readers always work.
+Prometheus-shaped: counters end in ``_total``, and every metric carries a
+fixed ``labelnames`` tuple with one series per label set. Thread-safe. With
+telemetry off (:mod:`._state`) every mutator returns at once; readers always
+work. The JAX package's histogram is not copied: no module of the port
+records one yet.
 """
 
 from __future__ import annotations
 
-import bisect
-import math
 import threading
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 from . import _state
-
-# Default buckets for wall-clock durations: 100 us .. 60 s, roughly
-# 2.5x steps — wide enough for both a 1-row serving score and a 1M-row
-# bulk pass, small enough that exposition stays readable.
-DEFAULT_LATENCY_BUCKETS: Tuple[float, ...] = (
-    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
-    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
-)
 
 
 def _check_labels(labelnames: Tuple[str, ...], labels: Dict[str, object]) -> Tuple[str, ...]:
@@ -123,149 +111,16 @@ class Gauge(_Metric):
     snapshot = Counter.snapshot
 
 
-class _HistSeries:
-    __slots__ = ("bucket_counts", "count", "sum", "min", "max")
-
-    def __init__(self, num_buckets: int) -> None:
-        self.bucket_counts = [0] * num_buckets
-        self.count = 0
-        self.sum = 0.0
-        self.min: Optional[float] = None
-        self.max: Optional[float] = None
-
-
-class Histogram(_Metric):
-    """Fixed-bucket histogram with Prometheus ``le`` semantics plus exact
-    min/max per series. ``buckets`` are the finite upper bounds; a final
-    ``+Inf`` bucket is implicit."""
-
-    kind = "histogram"
-
-    def __init__(
-        self,
-        name: str,
-        help: str,
-        labelnames: Sequence[str] = (),
-        buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS,
-    ) -> None:
-        super().__init__(name, help, labelnames)
-        bounds = tuple(float(b) for b in buckets)
-        if not bounds:
-            raise ValueError("histogram needs at least one finite bucket bound")
-        if any(b2 <= b1 for b1, b2 in zip(bounds, bounds[1:])):
-            raise ValueError(f"bucket bounds must strictly increase: {bounds}")
-        if math.isinf(bounds[-1]):
-            bounds = bounds[:-1]  # +Inf is implicit
-        self.buckets = bounds
-
-    def observe(self, value: float, **labels: object) -> None:
-        if not _state.enabled():
-            return
-        value = float(value)
-        key = _check_labels(self.labelnames, labels)
-        # first index whose bound >= value == the `le` bucket; past the last
-        # finite bound lands in the implicit +Inf slot
-        index = bisect.bisect_left(self.buckets, value)
-        with self._lock:
-            series = self._series.get(key)
-            if series is None:
-                series = self._series[key] = _HistSeries(len(self.buckets) + 1)
-            series.bucket_counts[index] += 1
-            series.count += 1
-            series.sum += value
-            series.min = value if series.min is None else min(series.min, value)
-            series.max = value if series.max is None else max(series.max, value)
-
-    def _get(self, labels: Dict[str, object]) -> Optional[_HistSeries]:
-        key = _check_labels(self.labelnames, labels)
-        with self._lock:
-            return self._series.get(key)
-
-    def quantile(self, q: float, **labels: object) -> float:
-        """Bucket-interpolated quantile in ``[0, 1]``; 0.0 when empty."""
-        if not 0.0 <= q <= 1.0:
-            raise ValueError(f"quantile must be in [0, 1], got {q}")
-        series = self._get(labels)
-        if series is None or series.count == 0:
-            return 0.0
-        target = q * series.count
-        cumulative = 0.0
-        lower = 0.0
-        for bound, in_bucket in zip(
-            self.buckets + (math.inf,), series.bucket_counts
-        ):
-            previous = cumulative
-            cumulative += in_bucket
-            if cumulative >= target and in_bucket > 0:
-                if math.isinf(bound):
-                    estimate = lower
-                else:
-                    estimate = lower + (bound - lower) * (
-                        (target - previous) / in_bucket
-                    )
-                break
-            if not math.isinf(bound):
-                lower = bound
-        else:  # pragma: no cover - loop always breaks once cumulative==count
-            estimate = lower
-        # a wide bucket must not report a value outside anything observed
-        return min(max(estimate, series.min), series.max)
-
-    def summary(self, **labels: object) -> dict:
-        """``{count, sum, min, max, p50, p95, p99}`` for one series."""
-        series = self._get(labels)
-        if series is None or series.count == 0:
-            return {
-                "count": 0, "sum": 0.0, "min": None, "max": None,
-                "p50": None, "p95": None, "p99": None,
-            }
-        return {
-            "count": series.count,
-            "sum": series.sum,
-            "min": series.min,
-            "max": series.max,
-            "p50": self.quantile(0.50, **labels),
-            "p95": self.quantile(0.95, **labels),
-            "p99": self.quantile(0.99, **labels),
-        }
-
-    def snapshot(self) -> dict:
-        bounds = [*self.buckets, math.inf]
-        with self._lock:
-            series = [
-                {
-                    "labels": dict(zip(self.labelnames, key)),
-                    "count": s.count,
-                    "sum": s.sum,
-                    "min": s.min,
-                    "max": s.max,
-                    # per-bucket (non-cumulative) counts; the cumulative `le`
-                    # form is their running sum. +Inf serialises as "+Inf".
-                    "buckets": [
-                        ["+Inf" if math.isinf(b) else b, c]
-                        for b, c in zip(bounds, s.bucket_counts)
-                    ],
-                }
-                for key, s in sorted(self._series.items())
-            ]
-        return {
-            "type": self.kind,
-            "help": self.help,
-            "labelnames": list(self.labelnames),
-            "series": series,
-        }
-
-
 class MetricsRegistry:
     """Get-or-create registry; one process-wide instance backs the module
-    helpers. Re-registering a name with a different type/labelnames/buckets
+    helpers. Re-registering a name with a different type or labelnames
     raises — a silent shape change would corrupt every existing series."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._metrics: Dict[str, _Metric] = {}
 
-    def _get_or_create(self, cls, name: str, help: str, labelnames, **kw) -> _Metric:
+    def _get_or_create(self, cls, name: str, help: str, labelnames) -> _Metric:
         with self._lock:
             existing = self._metrics.get(name)
             if existing is not None:
@@ -276,19 +131,8 @@ class MetricsRegistry:
                         f"metric {name!r} already registered as "
                         f"{existing.kind} with labels {existing.labelnames}"
                     )
-                if (
-                    isinstance(existing, Histogram)
-                    and "buckets" in kw
-                    and kw["buckets"] is not None
-                    and existing.buckets
-                    != tuple(float(b) for b in kw["buckets"])
-                ):
-                    raise ValueError(
-                        f"histogram {name!r} already registered with "
-                        f"buckets {existing.buckets}"
-                    )
                 return existing
-            metric = cls(name, help, labelnames, **{k: v for k, v in kw.items() if v is not None})
+            metric = cls(name, help, labelnames)
             self._metrics[name] = metric
             return metric
 
@@ -297,21 +141,6 @@ class MetricsRegistry:
 
     def gauge(self, name: str, help: str = "", labelnames: Sequence[str] = ()) -> Gauge:
         return self._get_or_create(Gauge, name, help, labelnames)
-
-    def histogram(
-        self,
-        name: str,
-        help: str = "",
-        labelnames: Sequence[str] = (),
-        buckets: Optional[Sequence[float]] = None,
-    ) -> Histogram:
-        if buckets is not None:
-            buckets = tuple(float(b) for b in buckets)
-            if buckets and math.isinf(buckets[-1]):
-                buckets = buckets[:-1]  # +Inf is implicit, as in Histogram
-        return self._get_or_create(
-            Histogram, name, help, labelnames, buckets=buckets
-        )
 
     def metrics(self) -> List[_Metric]:
         with self._lock:
@@ -341,15 +170,6 @@ def counter(name: str, help: str = "", labelnames: Sequence[str] = ()) -> Counte
 
 def gauge(name: str, help: str = "", labelnames: Sequence[str] = ()) -> Gauge:
     return _REGISTRY.gauge(name, help, labelnames)
-
-
-def histogram(
-    name: str,
-    help: str = "",
-    labelnames: Sequence[str] = (),
-    buckets: Optional[Iterable[float]] = None,
-) -> Histogram:
-    return _REGISTRY.histogram(name, help, labelnames, buckets)
 
 
 def reset_metrics() -> None:

@@ -161,8 +161,9 @@ def test_tail_pad_is_never_drawn():
     """F = 70: the last chunk has 6 real and 58 padded columns, which draw
     -inf and are never chosen, while its real columns are."""
     X = torch.from_numpy(np.random.default_rng(6).normal(size=(500, 70)).astype(np.float32))
-    forest = ext_growth.grow_extended_forest_fused(prng.PRNGKey(6), X, num_samples=64, num_trees=32,
-                                                   bootstrap=False, num_features=70, height=6, extension_level=5)
+    tree_keys, bag, fidx = bagging.ensemble_draws(prng.PRNGKey(6), X, num_samples=64, num_trees=32,
+                                                  bootstrap=False, num_features=70)
+    forest = ext_growth.grow_extended_forest(tree_keys, X, bag, fidx, 6, 5)
     sub = forest.indices.numpy()[forest.indices.numpy() >= 0]
     assert sub.max() < 70 and (sub >= 64).any()
 
@@ -179,8 +180,9 @@ def test_top_k_breaks_ties_as_lax_top_k():
 
 
 def test_fused_growth_is_the_unfused_chain():
-    """``grow_extended_forest_fused`` splits the key as ``(k_bag, k_feat,
-    k_grow)`` and equals bags + subsets + per-tree keys + growth."""
+    """Growth on ``bagging.ensemble_draws``, which splits the key as
+    ``(k_bag, k_feat, k_grow)``, equals bags + subsets + per-tree keys +
+    growth."""
     X = torch.from_numpy(_data(6, 700))
     key = prng.PRNGKey(3)
     k_bag, k_feat, k_grow = prng.split(key, 3)
@@ -188,8 +190,9 @@ def test_fused_growth_is_the_unfused_chain():
         bagging.per_tree_keys(k_grow, 5), X, bagging.bagged_indices(k_bag, 700, 32, 5, False),
         bagging.feature_subsets(k_feat, 6, 6, 5), 5, 2,
     )
-    got = ext_growth.grow_extended_forest_fused(key, X, num_samples=32, num_trees=5, bootstrap=False,
-                                                num_features=6, height=5, extension_level=2)
+    tree_keys, bag, fidx = bagging.ensemble_draws(key, X, num_samples=32, num_trees=5, bootstrap=False,
+                                                  num_features=6)
+    got = ext_growth.grow_extended_forest(tree_keys, X, bag, fidx, 5, 2)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert got.k == 3

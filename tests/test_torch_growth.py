@@ -142,8 +142,9 @@ def test_chunk_geometry(features):
 
 
 def test_fused_growth_is_the_unfused_chain():
-    """``grow_forest_fused`` splits the key as ``(k_bag, k_feat, k_grow)``
-    and equals bags + subsets + per-tree keys + ``grow_forest``."""
+    """``bagging.ensemble_draws`` splits the key as ``(k_bag, k_feat,
+    k_grow)``, so growth on its draws equals bags + subsets + per-tree keys
+    + ``grow_forest``; a given bag replaces only the bagging draw."""
     X = torch.from_numpy(_data(6, 700))
     key = prng.PRNGKey(3)
     k_bag, k_feat, k_grow = prng.split(key, 3)
@@ -151,6 +152,11 @@ def test_fused_growth_is_the_unfused_chain():
         bagging.per_tree_keys(k_grow, 5), X, bagging.bagged_indices(k_bag, 700, 32, 5, False),
         bagging.feature_subsets(k_feat, 6, 6, 5), 5,
     )
-    got = tree_growth.grow_forest_fused(key, X, num_samples=32, num_trees=5, bootstrap=False, num_features=6, height=5)
+    tree_keys, bag, fidx = bagging.ensemble_draws(key, X, num_samples=32, num_trees=5, bootstrap=False,
+                                                  num_features=6)
+    got = tree_growth.grow_forest(tree_keys, X, bag, fidx, 5)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    given = torch.flip(bag, dims=[1])
+    drawn = bagging.ensemble_draws(key, X, num_samples=32, num_trees=5, bootstrap=False, num_features=6, bag=given)
+    assert drawn[1] is given and torch.equal(drawn[0], tree_keys) and torch.equal(drawn[2], fidx)

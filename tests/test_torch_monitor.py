@@ -388,14 +388,11 @@ def test_metrics_equal_the_jax_packages(labels):
     for mod, out in ((metrics, got), (jmetrics, want)):
         counter = mod.Counter("c_total", "help", labels)
         gauge = mod.Gauge("g", "help", labels)
-        hist = mod.Histogram("h", "help", labels)
         for v in values:
             counter.inc(v, **kw)
             gauge.set(v, **kw)
-            hist.observe(v, **kw)
         gauge.dec(0.5, **kw)
-        out.append((counter.snapshot(), gauge.snapshot(), hist.snapshot(), hist.summary(**kw),
-                    [hist.quantile(q, **kw) for q in (0.0, 0.3, 0.5, 0.99, 1.0)]))
+        out.append((counter.snapshot(), gauge.snapshot(), counter.value(**kw), gauge.value(**kw)))
         with pytest.raises(ValueError):
             counter.inc(-1.0, **kw)
         with pytest.raises(ValueError):
