@@ -17,7 +17,8 @@ Phases, each printing one JSON line:
    JAX package's (max |delta| <= 2e-6, AUROC in [0.84, 0.90], equal labels
    away from the threshold);
 4. full_size: 1,000,000 seeded rows through the loaded 100-tree model with
-   each strategy, through ``model.score``, with every launch counter set to
+   each strategy, through ``model.score`` (host rows, streamed in chunks:
+   the launch counts are the call's chunks), with every launch counter set to
    0 just before and read just after; then each kernel against its plain
    PyTorch version on the same inputs, exactly (max |delta| 0), the walk
    also with its small-batch launch (a warp a row, four 32-tree rounds, the
@@ -31,7 +32,8 @@ Phases, each printing one JSON line:
    +-inf): each kernel against its plain version exactly (max |delta| 0),
    the walk with both its bulk and its small-batch launch;
 6. serving: ``model.score`` latency on batches of 1, 64 and 4,096 rows,
-   with ``strategy="auto"`` (the walk) and ``"dense"``.
+   with ``strategy="auto"`` (and what the autotuner resolved it to) and
+   ``"dense"``.
 
 Then the same for the extended (EIF) forest:
 
@@ -47,10 +49,12 @@ Then the same for the extended (EIF) forest:
 9. ext_full_size: the EIF main path, with every launch counter set to 0
    just before and read just after: 1,000,000 seeded rows through
    ``model.score`` with each strategy (the walk kernel and the sparse
-   dense-walk kernel), and 65,536 rows through ``score_matrix(...,
-   strategy="dense")`` of a seeded, fully extended forest at the high-dim
-   width (F = k = 274, 100 trees, height 8: the dense-table kernel); then
-   each kernel against its plain version on all of its rows, the two path
+   dense-walk kernel), and 1,000,000 host rows (1.1 GB, streamed) through
+   ``score_matrix(..., strategy="dense")`` of a seeded, fully extended
+   forest at the high-dim width (F = k = 274, 100 trees, height 8: the
+   dense-table kernel), whose first 65,536 must equal one launch over them;
+   then each kernel against its plain version on all of its rows (the
+   dense-table kernel on those 65,536), the two path
    kernels (the walk and the sparse one) also with their small-batch
    launch (a warp a row, four 32-tree rounds, the last ragged) on the
    first 4,096 rows, CUDA-event timings and bounds, and beside the
@@ -68,7 +72,7 @@ Then the same for the extended (EIF) forest:
     version exactly, the two path kernels (the walk and the sparse one)
     with both their bulk and small-batch launches;
 11. ext_serving: EIF ``model.score`` latency on batches of 1, 64 and 4,096
-    rows, ``"auto"`` and ``"dense"``.
+    rows, ``"auto"`` (and its resolution) and ``"dense"``.
 
 Then fit of the standard forest, on the card:
 
@@ -148,17 +152,46 @@ Then the model's lifecycle around the kernels, on the card:
     through the walk kernels equal their plain versions exactly and the
     CPU's scores within 2e-6.
 
+Then the scoring executor, the autotuner, the watchdog and spans:
+
+24. streaming: for both fixtures and both strategies, the 1M host rows at
+    chunks of 2^17 to 2^20 rows (2^20 is one chunk) with ``pipeline=True``
+    and ``False``, 1,000,003 rows (a ragged tail), rows already on the
+    card, and two streamed calls on different rows back to back with no
+    synchronisation: every variant equal to one launch over rows on the card
+    exactly (max |delta| 0); the wall time of each (median of 15, taken in
+    turns), the first and the second streamed call (the pinned buffers'
+    allocation), the overlap efficiency, torch.profiler around one streamed
+    call of each (pinned copies, kernels, busy share); a monitored streamed
+    call folds what a monitored ``pipeline=False`` one does; no
+    ``pipeline_fallback`` on the card;
+25. autotune: on a fresh table, ``auto`` resolved cold, then warm, for each
+    fixture at 1, 64, 4,096 and 1M rows and the mammography rows (winner,
+    probe seconds, source ``probe`` then ``table``; 1 and 64 rows share a
+    bucket), ``auto``'s scores equal the winner's exactly, and on the
+    mammography rows the winner's committed JAX counterpart within 2e-6;
+26. watchdog: ``slow_collective`` armed, ``model.score(..., timeout_s=0.5)``
+    raises ``WatchdogTimeout`` within the deadline plus 0.5 s, no rung and no
+    dense launch follow; the next call, while the abandoned run wakes, equals
+    the single-shot scores, and the abandoned run ends;
+27. spans: torch.profiler around one 1M-row ``model.score`` with telemetry
+    on: ``pipeline.chunk`` ranges inside ``score_matrix`` inside
+    ``model.score``, and ``telemetry.spans.summary()`` lists them.
+
 Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
 with its launches in the 1M-row fit and ``ext_walk_sum`` with its launches
 in the 1M-row EIF fit, ``fit_launches``), the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any
-failed check raises and exits non-zero. With no CUDA card, or without the
-package beside it, the script prints no result and exits 2.
+failed check raises and exits non-zero. The run's autotune tables live in
+``build/`` (git-ignored), fresh each run, so every run probes cold. With
+no CUDA card, or without the package beside it, the script prints no
+result and exits 2.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -235,7 +268,8 @@ def profile_call(fn, host_top: int = 0) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # spans are profiler ranges, shown on the device's timeline too: not device work
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             device[e.name] = device.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
     out = {"wall_ms": wall_ms, "device_ms": sum(device.values()),
@@ -244,7 +278,8 @@ def profile_call(fn, host_top: int = 0) -> dict:
            "top_device_ms": [[k[:80], v] for k, v in top]}
     if host_top:
         ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
-        out["device_activities"] = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        out["device_activities"] = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                                       and not getattr(e, "is_user_annotation", False))
         out["host_ops_self_ms_total"] = sum(a.self_cpu_time_total for a in ops) / 1e3
         out["host_ops_top"] = [[a.key[:60], a.count, a.self_cpu_time_total / 1e3] for a in ops[:host_top]]
     return out
@@ -264,7 +299,10 @@ def breakdown_phase(phase: str, model, X) -> dict:
 
 def serving_latency(model, X, strategies) -> dict:
     """Median and max host-clock latency of ``model.score`` (synchronised by
-    the copy back) over 21 calls, per strategy and batch of 1, 64, 4,096 rows."""
+    the copy back) over 21 calls, per strategy and batch of 1, 64, 4,096
+    rows; for ``"auto"``, what it resolved to and from where."""
+    from isoforest_tpu_torch.tuning import resolve_decision
+
     out = {}
     for strategy in strategies:
         for n in (1, 64, 4096):
@@ -277,6 +315,9 @@ def serving_latency(model, X, strategies) -> dict:
                 model.score(batch, strategy=strategy).cpu()
                 lat.append((time.perf_counter() - t0) * 1e3)
             out[f"{strategy}_{n}"] = {"median_ms": statistics.median(lat), "max_ms": max(lat)}
+            if strategy == "auto":
+                d = resolve_decision(model.forest, batch, model.num_samples, cache=model._cache)
+                out[f"{strategy}_{n}"].update(resolved=d.strategy, source=d.source)
     return out
 
 
@@ -349,7 +390,11 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
 
     # 9. the EIF main path: counters at 0 just before, read just after
     f5 = extended_forest_from_arrays(*random_extended_forest(rng, 100, 8, 274, 274, split_p=1.0))
-    X5 = torch.from_numpy(rows(rng, HIGH_DIM_ROWS, 274)).to(dev)
+    # 1.1 GB of host rows at F = 274: the executor streams them through the
+    # dense-table kernel; the plain check keeps to their first 65,536
+    X5_host = rows(rng, FULL_ROWS, 274)
+    X5 = torch.from_numpy(X5_host[:HIGH_DIM_ROWS]).to(dev)
+    f5_cache = {}
     eif_paths = ("ext_walk_sum", "ext_sparse_mean")
     for name in eif_paths:
         ext_path.launches[name] = 0
@@ -361,14 +406,16 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     s_dense = model.score(X_big, strategy="dense")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    s_high = score_matrix(f5, X5, 256, strategy="dense")
+    s_high = score_matrix(f5, X5_host, 256, strategy="dense", cache=f5_cache)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     launches = {**{name: ext_path.launches[name] for name in eif_paths},
                 "ext_dense_mean": ext_dense.ext_dense_mean.launches}
+    # the first call builds the table and pins 2 x 574 MB of staging; a warm one does neither
+    high_warm_s = synced(lambda: score_matrix(f5, X5_host, 256, strategy="dense", cache=f5_cache))[1]
     require(all(v > 0 for v in launches.values()), f"an EIF kernel did not launch: {launches}")
     for name, s, n_rows in (("walk", s_walk, FULL_ROWS), ("dense", s_dense, FULL_ROWS),
-                            ("high_dim_dense", s_high, HIGH_DIM_ROWS)):
+                            ("high_dim_dense", s_high, FULL_ROWS)):
         require(tuple(s.shape) == (n_rows,) and bool(torch.isfinite(s).all())
                 and bool(((s > 0) & (s <= 1)).all()), f"EIF {name}: bad full-size scores")
 
@@ -414,6 +461,9 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     require(sparse_err == 0.0 and sparse_small_err == 0.0,
             f"EIF sparse kernel vs plain: {sparse_err}, {sparse_small_err}")
     require(dense_err == 0.0, f"EIF dense-table kernel vs plain: {dense_err}")
+    # the streamed 1M-row call's first rows equal one launch on the checked rows
+    high_single = score_matrix(f5, X5, 256, strategy="dense", cache=f5_cache, chunk_size=HIGH_DIM_ROWS)
+    require(torch.equal(s_high[:HIGH_DIM_ROWS], high_single), "the streamed F = 274 scores differ from one launch's")
     # the dots alone as one float32 product (TF32 is off): a yardstick, not the function
     m_int5 = (dt.value.shape[1] + 1) // 2 - 1
     W5 = dt.weight[:, :, :m_int5].permute(1, 0, 2).reshape(dt.weight.shape[1], -1).contiguous()
@@ -475,7 +525,9 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     emit({"phase": "ext_full_size", "rows": n, "features": f, "trees": t_n, "k": k,
           "heap_slots": model.forest.max_nodes, "high_dim": {"rows": n5, "features": 274, "k": k5, "trees": t5,
                                                              "height": f5.height, "matmul_shape": list(W5.shape)},
-          "launches": launches, "score_walk_s": t1 - t0, "score_dense_s": t2 - t1, "score_high_dim_s": t3 - t2,
+          "launches": launches, "score_walk_s": t1 - t0, "score_dense_s": t2 - t1,
+          "score_high_dim_1m_streamed_s": t3 - t2, "score_high_dim_1m_streamed_warm_s": high_warm_s,
+          "high_dim_streamed_rows": FULL_ROWS,
           "walk_vs_dense_max_abs_score": float((s_walk - s_dense).abs().max()),
           "walk_vs_gather_max_abs_score_4096": gather_gap,
           "walk_kernel_vs_plain_max_abs_sum": walk_err,
@@ -588,6 +640,7 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
 
     # 11. serving-sized batches through the EIF model.score
     emit({"phase": "ext_serving", "latency": serving_latency(model, X_big, ("auto", "dense"))})
+    del X5_host
 
     walk_src = sparse_src = "isoforest_tpu_torch/csrc/path_walk.cu"
     entry = {"route": "cuda", "library_ms": None}
@@ -605,7 +658,8 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
          "replaces": "isoforest_tpu/ops/pallas_traversal.py:331",
          "launches": launches["ext_dense_mean"], "max_abs_err": dense_err, "ms": times["dense_ms"],
          "plain_ms": times["dense_plain_ms"], "bound_ms": dense_bound, "bound_by": dense_by,
-         "matmul_ms": times["dense_matmul_ms"],
+         "matmul_ms": times["dense_matmul_ms"], "streamed_1m_call_ms": (t3 - t2) * 1e3,
+         "streamed_1m_warm_call_ms": high_warm_s * 1e3,
          "rows": n5, "plain_rows": n5},
     ]
 
@@ -693,7 +747,7 @@ def fit_phases(dev, X_m, y_m, X_big, fixture_model) -> dict:
                           "port_draws": draws, "ulps_apart": ulps})
         require(ulps <= 4, f"tree {t} slot {s}: draws {draws} are {ulps} ulps apart, not a near-tie")
     thr = model.outlier_score_threshold
-    scores = model.score(X_m)
+    scores = model.score(X_m, strategy="walk")  # the threshold pass's own kernel
     rank_error = quantile_rank_error(scores, thr, 1.0 - 0.02)
     auc = auroc(scores.cpu().numpy(), y_m)
     build = ROOT / "build"
@@ -702,7 +756,7 @@ def fit_phases(dev, X_m, y_m, X_big, fixture_model) -> dict:
         path = str(pathlib.Path(tmp) / "model")
         _, save_s = synced(lambda: model.save(path))
         loaded, load_s = synced(lambda: load_model(path))
-        reloaded_equal = bool(torch.equal(loaded.score(X_m), scores))
+        reloaded_equal = bool(torch.equal(loaded.score(X_m, strategy="walk"), scores))
         same_threshold = loaded.outlier_score_threshold == thr
     emit({"phase": "fit_parity", "rows": len(X_m), "trees": model.forest.num_trees,
           "heap_slots": model.forest.max_nodes, "first_fit_s": first_fit_s, "warm_fit_s": warm_fit_s,
@@ -750,7 +804,7 @@ def fit_phases(dev, X_m, y_m, X_big, fixture_model) -> dict:
     require(fit_launches >= 1, "the 1M-row fit's threshold pass did not launch walk_sum")
     Xd = torch.from_numpy(X_big).to(dev)
     invariants(big, X_big)
-    big_rank_error = quantile_rank_error(big.score(Xd), big.outlier_score_threshold, 1.0 - 0.02)
+    big_rank_error = quantile_rank_error(big.score(Xd, strategy="walk"), big.outlier_score_threshold, 1.0 - 0.02)
     require(big_rank_error == 0, f"1M-row threshold rank error {big_rank_error}")
     big_walk_err = fitted_walk_errors(walk.walk_tables(big.forest), Xd)
     require(all(e == 0.0 for e in big_walk_err.values()), f"walk_sum on the 1M-row forest: {big_walk_err}")
@@ -947,7 +1001,7 @@ def eif_fit_phases(dev, X_m, y_m, X_big) -> int:
               "differing_nodes": int(differ.sum()), "differing_subtrees": explained,
               "nodes_with_other_weight_or_offset_bits": int((value_ulps > 0).sum()),
               "threshold": thr, "fixture_threshold": fixture.outlier_score_threshold,
-              "rank_error": quantile_rank_error(model.score(X_m), thr, 1.0 - 0.02)}
+              "rank_error": quantile_rank_error(model.score(X_m, strategy="walk"), thr, 1.0 - 0.02)}
     require(abs(thr - 0.6251140236854553) <= 2e-6, f"fitted EIF threshold {thr}")
     require(parity["rank_error"] == 0, f"EIF threshold rank error {parity['rank_error']}")
     gather_auc = auroc(np.load(EIF_FIXTURE / "jax_scores.npy"), y_m)
@@ -982,7 +1036,7 @@ def eif_fit_phases(dev, X_m, y_m, X_big) -> int:
     require(fit_launches >= 1, "the 1M-row EIF fit's threshold pass did not launch ext_walk_sum")
     Xd = torch.from_numpy(X_big).to(dev)
     invariants(big, X_big)
-    big_rank_error = quantile_rank_error(big.score(Xd), big.outlier_score_threshold, 1.0 - 0.02)
+    big_rank_error = quantile_rank_error(big.score(Xd, strategy="walk"), big.outlier_score_threshold, 1.0 - 0.02)
     require(big_rank_error == 0, f"1M-row EIF threshold rank error {big_rank_error}")
     big_err = path_errors("ext_walk_sum", big.forest, Xd[:65_536])
     require(all(v == 0.0 for v in big_err.values()), f"ext_walk_sum on the 1M-row EIF: {big_err}")
@@ -1184,7 +1238,7 @@ def model_phases(dev, X_m, X_big) -> None:
             model = load_model(str(fixture / "model"))
             monitor = model.enable_monitoring()
             ext_path.launches[kernel] = 0
-            model.score(X_m)
+            model.score(X_m, strategy="walk")
             launched = ext_path.launches[kernel]
             trained = monitor.report()
             require(launched >= 1, f"{kind}: the monitored score did not launch {kernel}")
@@ -1313,9 +1367,9 @@ def model_phases(dev, X_m, X_big) -> None:
             require(report == host.load_report.as_dict() and report["dropped_tree_ids"] and refused,
                     f"{kind}: reports {report} / {host.load_report.as_dict()}, strict load refused: {refused}")
             ext_path.launches[kernel] = 0
-            scores = card.score(Xd)
+            scores = card.score(Xd, strategy="walk")
             launched = ext_path.launches[kernel]
-            cpu_err = float((scores.cpu() - host.score(X_m)).abs().max())
+            cpu_err = float((scores.cpu() - host.score(X_m, strategy="walk")).abs().max())
             kernel_err = path_kernel_errors(kernel, card.forest, Xd)
             require(launched >= 1, f"{kind}: the salvaged model's score did not launch {kernel}")
             require(all(v == 0.0 for v in kernel_err.values()) and cpu_err <= 2e-6,
@@ -1327,6 +1381,211 @@ def model_phases(dev, X_m, X_big) -> None:
         emit(out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+SWEEP_CHUNKS = (1 << 17, 1 << 18, 1 << 19, 1 << 20)
+WATCHDOG_DEADLINE_S = 0.5
+WATCHDOG_SLACK_S = 0.5  # how late the timeout may surface past its deadline
+
+
+def wall_ms(fns: dict, reps: int = 15) -> dict:
+    """Median host-clock ms of each ``fns[name]()`` between synchronisations,
+    after two warm-ups, the calls taken in turns so that the host's noise
+    spreads over all of them."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+        fn()
+    lat = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(v) for name, v in lat.items()}
+
+
+def executor_phases(dev, X_m, X_big) -> None:
+    """Phases 24-27: the streaming executor, the autotuner, the scoring
+    watchdog and the spans, on both fixture models and the 1M rows."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import load_model, telemetry, tuning
+    from isoforest_tpu_torch.ops import dense, streaming
+    from isoforest_tpu_torch.resilience import faults, watchdog
+    from isoforest_tpu_torch.resilience.degradation import degradation_report, degradations
+    from isoforest_tpu_torch.telemetry import spans
+
+    telemetry.enable()
+    fixtures = {"standard": FIXTURE, "extended": EIF_FIXTURE}
+    models = {kind: load_model(str(path / "model")) for kind, path in fixtures.items()}
+    fallbacks = degradation_report().count("pipeline_fallback")
+    Xd = torch.from_numpy(X_big).to(dev)
+    X_rev = np.ascontiguousarray(X_big[::-1])
+    ragged = np.concatenate([X_big, X_big[:3]])
+    default_chunk = streaming.resolve_chunk_rows(None, "cuda")
+    chunks = sorted(set(SWEEP_CHUNKS) | {default_chunk})
+
+    # 24. streaming: every variant against one launch over rows on the card
+    out = {"phase": "streaming", "rows": FULL_ROWS, "default_chunk_rows": default_chunk}
+    singles = {}
+    for kind, model in models.items():
+        for strategy in ("walk", "dense"):
+            single = singles[kind, strategy] = model.score(Xd, strategy=strategy, chunk_size=FULL_ROWS + 3)
+            single_rev = model.score(torch.from_numpy(X_rev).to(dev), strategy=strategy, chunk_size=FULL_ROWS + 3)
+            for chunk in chunks:
+                for pipe in (True, False):
+                    got = model.score(X_big, strategy=strategy, chunk_size=chunk, pipeline=pipe)
+                    require(torch.equal(got, single), f"{kind} {strategy}: chunk {chunk} pipeline={pipe} "
+                            f"differs by {float((got - single).abs().max())}")
+            tail = model.score(ragged, strategy=strategy)
+            require(torch.equal(tail[:FULL_ROWS], single) and torch.equal(tail[FULL_ROWS:], single[:3]),
+                    f"{kind} {strategy}: the ragged 1,000,003 rows differ")
+            require(torch.equal(model.score(Xd, strategy=strategy), single), f"{kind} {strategy}: resident rows differ")
+            # hazards 1-2: two streamed calls on different rows, no synchronisation between
+            got_a = model.score(X_big, strategy=strategy)
+            got_b = model.score(X_rev, strategy=strategy)
+            require(torch.equal(got_a, single) and torch.equal(got_b, single_rev),
+                    f"{kind} {strategy}: back-to-back streamed calls differ")
+            variants = {f"chunk_{chunk}_{'pipelined' if pipe else 'sync'}_ms":
+                        (lambda chunk=chunk, pipe=pipe: model.score(X_big, strategy=strategy, chunk_size=chunk,
+                                                                    pipeline=pipe))
+                        for chunk in chunks for pipe in (True, False)}
+            variants["resident_default_chunk_ms"] = lambda: model.score(Xd, strategy=strategy)
+            times = wall_ms(variants)
+            model.score(X_big, strategy=strategy)
+            out[f"{kind}_{strategy}"] = {**times, "pipeline_stats": streaming.pipeline_stats()}
+    # a trace taken while the card's memory is full of cached blocks can miss
+    # device activity: hand the cache back first
+    torch.cuda.empty_cache()
+    # hazard 3: the first streamed call allocates the pinned buffers, the second reuses them
+    with streaming._STAGING_LOCK:
+        for staging in streaming._STAGING.values():
+            staging.quiesce()
+        streaming._STAGING.clear()
+    std = models["standard"]
+    out["first_call_ms"] = synced(lambda: std.score(X_big, strategy="walk"))[1] * 1e3
+    out["second_call_ms"] = synced(lambda: std.score(X_big, strategy="walk"))[1] * 1e3
+    out["profile"] = {f"{kind}_{strategy}_{'pipelined' if pipe else 'sync'}":
+                      profile_call(lambda m=m, strategy=strategy, pipe=pipe: m.score(X_big, strategy=strategy,
+                                                                                     pipeline=pipe))
+                      for kind, m in models.items() for strategy in ("walk", "dense") for pipe in (True, False)}
+    # hazard 6: a monitored streamed call folds what a monitored pipeline=False call folds
+    folds = {}
+    for kind, path in fixtures.items():
+        counts = []
+        for pipe in (True, False):
+            m = load_model(str(path / "model"))
+            monitor = m.enable_monitoring()
+            m.score(X_big, pipeline=pipe)
+            counts.append((monitor._score_counts.copy(), np.array(monitor._feature_counts), monitor.drift()["rows"]))
+        folds[kind] = bool(np.array_equal(counts[0][0], counts[1][0]) and np.array_equal(counts[0][1], counts[1][1])
+                           and counts[0][2] == counts[1][2] == FULL_ROWS)
+        require(folds[kind], f"{kind}: the streamed call folded otherwise than pipeline=False")
+    out["monitor_folds_equal"] = folds
+    out["pipeline_fallbacks"] = degradation_report().count("pipeline_fallback") - fallbacks
+    require(out["pipeline_fallbacks"] == 0, "a pipeline_fallback was recorded on the card")
+    emit(out)
+
+    # 25. autotune: cold, then warm, per fixture and bucket, on a fresh table
+    os.environ["ISOFOREST_TPU_AUTOTUNE_PATH"] = str(ROOT / "build" / f"autotune_phase_{os.getpid()}.json")
+    tuning.reset_cost_model()
+    counterparts = {"standard": {"walk": "jax_scores.npy", "dense": "jax_scores.npy"},
+                    "extended": {"walk": "jax_walk_scores.npy", "dense": "jax_pallas_scores.npy"}}
+    out = {"phase": "autotune"}
+    for kind, model in models.items():
+        rows, probed = {}, set()
+        for n in (1, 64, 4096, FULL_ROWS, len(X_m)):
+            batch = X_m if n == len(X_m) else X_big[:n]
+            cold, cold_s = synced(lambda: tuning.resolve_decision(model.forest, batch, model.num_samples,
+                                                                  cache=model._cache))
+            warm = tuning.resolve_decision(model.forest, batch, model.num_samples, cache=model._cache)
+            # 1 and 64 rows share the 1,024-row bucket: the second reads the first's probe
+            first = cold.key not in probed
+            probed.add(cold.key)
+            require(cold.source == ("probe" if first else "table") and warm.source == "table"
+                    and warm.strategy == cold.strategy, f"{kind} {n} rows: {cold.source} then {warm.source}")
+            auto = model.score(batch)
+            require(torch.equal(auto, model.score(batch, strategy=cold.strategy)),
+                    f"{kind} {n} rows: auto differs from its winner {cold.strategy}")
+            row = {"winner": cold.strategy, "probe_s": cold.timings_s, "resolve_cold_s": cold_s,
+                   "probe_rows": tuning.table_snapshot()["entries"][cold.key]["probe_rows"],
+                   "sources": [cold.source, warm.source]}
+            if batch is X_m:
+                want = np.load(fixtures[kind] / counterparts[kind][cold.strategy])
+                row["committed"] = counterparts[kind][cold.strategy]
+                row["max_abs_err_vs_committed"] = float(np.abs(auto.cpu().numpy() - want).max())
+                require(row["max_abs_err_vs_committed"] <= 2e-6, f"{kind}: auto vs {row['committed']}")
+            rows["mammography" if batch is X_m else n] = row
+        out[kind] = rows
+    emit(out)
+
+    # 26. watchdog: a stalled call raises at its deadline, nothing is retried
+    # elsewhere, and the next call is exact while the abandoned run wakes
+    acquired = []
+    acquire = streaming._acquire_staging
+
+    def spy(*args):
+        staging, cached = acquire(*args)
+        acquired.append((threading.current_thread().name, id(staging), cached))
+        return staging, cached
+
+    want = singles["standard", "walk"]
+    dense_before, rungs_before = dense.dense_mean.launches, len(degradations())
+    streaming._acquire_staging = spy
+    try:
+        with faults.inject(slow_collective=True):
+            t0 = time.perf_counter()
+            try:
+                std.score(X_big, strategy="walk", timeout_s=WATCHDOG_DEADLINE_S)
+                raised = False
+            except watchdog.WatchdogTimeout:
+                raised = True
+            waited = time.perf_counter() - t0
+        next_equal = bool(torch.equal(std.score(X_big, strategy="walk"), want))
+        still_alive = watchdog.join_abandoned(30.0)
+        torch.cuda.synchronize()
+    finally:
+        streaming._acquire_staging = acquire
+    out = {"phase": "watchdog", "deadline_s": WATCHDOG_DEADLINE_S, "slack_s": WATCHDOG_SLACK_S, "raised": raised,
+           "waited_s": waited, "next_call_equal": next_equal, "abandoned_alive_after_join": still_alive,
+           "staging_acquisitions": acquired, "dense_launches": dense.dense_mean.launches - dense_before,
+           "rungs": len(degradations()) - rungs_before}
+    emit(out)
+    require(raised and waited <= WATCHDOG_DEADLINE_S + WATCHDOG_SLACK_S, f"the watchdog: raised {raised} after {waited} s")
+    require(next_equal and still_alive == 0, "the call after the timeout differs, or the abandoned run hangs")
+    require(out["dense_launches"] == 0 and out["rungs"] == 0, "a timed-out call was retried elsewhere")
+
+    # 27. spans: one 1M-row model.score under torch.profiler, telemetry on
+    spans.reset_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        std.score(X_big)
+        torch.cuda.synchronize()
+    names = ("model.score", "score_matrix", "pipeline.chunk")
+    ranges = {name: [(e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.name == name and e.device_type == torch.autograd.DeviceType.CPU] for name in names}
+
+    def inside(inner, outer) -> bool:
+        return all(any(o0 <= i0 and i1 <= o1 for o0, o1 in ranges[outer]) for i0, i1 in ranges[inner])
+
+    summary = spans.summary()
+    parents = {r.name: r.parent for r in spans.records()}
+    out = {"phase": "spans", "profiler_ranges": {k: len(v) for k, v in ranges.items()},
+           "chunks_nested_in_score_matrix": inside("pipeline.chunk", "score_matrix"),
+           "score_matrix_nested_in_model_score": inside("score_matrix", "model.score"),
+           "parents": parents, "summary": {k: summary[k] for k in names if k in summary}}
+    emit(out)
+    require(all(ranges[name] for name in names) and out["chunks_nested_in_score_matrix"]
+            and out["score_matrix_nested_in_model_score"], f"the profiler ranges: {out['profiler_ranges']}")
+    require(parents.get("pipeline.chunk") == "score_matrix" and parents.get("score_matrix") == "model.score"
+            and all(name in summary for name in names), f"the spans: {parents}")
 
 
 def main() -> int:
@@ -1351,6 +1610,8 @@ def main() -> int:
     from isoforest_tpu_torch.utils.math import score_from_path_length
 
     dev = torch.device("cuda")
+    # every run probes cold: its own autotune table
+    os.environ["ISOFOREST_TPU_AUTOTUNE_PATH"] = str(ROOT / "build" / f"autotune_{os.getpid()}.json")
     # plain float32 products only: nothing below may round through TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1567,6 +1828,7 @@ def main() -> int:
     fit_launches = fit_phases(dev, X_m, y_m, X_big, model)
     ext_kernels[0]["fit_launches"] = eif_fit_phases(dev, X_m, y_m, X_big)
     model_phases(dev, X_m, X_big)
+    executor_phases(dev, X_m, X_big)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",

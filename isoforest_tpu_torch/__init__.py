@@ -14,12 +14,18 @@ runs the kernels' plain PyTorch versions.
     model = IsolationForest(contamination=0.02).fit(X)  # or ExtendedIsolationForest(...)
     model = IsolationForest(contamination=0.02).fit(X, checkpoint_dir="ckpt")  # resumable
     model.save("path/to/model")  # with its drift baseline, _BASELINE.json
-    served = load_model("path/to/model")
+    served = load_model("path/to/model").warmup((1, 64, 4096))  # kernels, tables, autotuned buckets
     monitor = served.enable_monitoring()  # every score() now folds into it
-    scores = served.score(X)
+    scores = served.score(X, timeout_s=5.0)  # host rows stream through pinned buffers
     print(monitor.report())  # score and feature PSI, KS, alerts
+
+``strategy="auto"`` (the default) is resolved by the measured autotuner
+(:mod:`.tuning`); rows on the host reach the card chunk by chunk through the
+streaming executor (:mod:`.ops.streaming`); :mod:`.telemetry` holds spans,
+metrics and events, :mod:`.resilience` the watchdog and the fault seams.
 """
 
+from . import resilience, telemetry, tuning
 from .io import persistence
 from .models import ExtendedIsolationForest, ExtendedIsolationForestModel, IsolationForest, IsolationForestModel
 from .ops.traversal import score_matrix
@@ -37,4 +43,5 @@ def load_model(path: str, device=None, require_success: bool = True, verify="aut
                                   on_corrupt=on_corrupt)
 
 
-__all__ = ["ExtendedIsolationForest", "ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel", "load_model", "score_matrix"]
+__all__ = ["ExtendedIsolationForest", "ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel",
+           "load_model", "resilience", "score_matrix", "telemetry", "tuning"]

@@ -44,6 +44,7 @@ from ..ops.ext_growth import grow_extended_forest
 from ..ops.quantile import contamination_threshold, observed_contamination
 from ..ops.traversal import score_matrix
 from ..ops.tree_growth import StandardForest, grow_forest
+from ..telemetry.spans import span as _telemetry_span
 from ..utils.device import resolve_device
 from ..utils.math import height_limit
 from ..utils.params import IsolationForestParams, resolve_extension_level, resolve_params
@@ -103,9 +104,10 @@ def _capture_fit_baseline(model, X: torch.Tensor) -> None:
     n = int(X.shape[0])
     step = max(1, -(-n // _BASELINE_MAX_ROWS))
     sub = X[::step].contiguous()
-    scores = score_matrix(model.forest, sub, model.num_samples, strategy="walk", device=model.device,
-                          cache=model._cache)
-    model.baseline = capture_baseline(scores, sub, total_rows=n)
+    with _telemetry_span("fit.baseline", rows=int(sub.shape[0])):
+        scores = score_matrix(model.forest, sub, model.num_samples, strategy="walk", device=model.device,
+                              cache=model._cache)
+        model.baseline = capture_baseline(scores, sub, total_rows=n)
 
 
 def _grow_block(tree_keys, X: torch.Tensor, bag, fidx, height: int, extension_level):
@@ -175,9 +177,10 @@ def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, X: torc
         resumed = arrays is not None
         if arrays is None:
             trees = slice(start, stop)
-            block = _grow_block(tree_keys[trees], X, bag[trees], fidx[trees], height, extension_level)
-            arrays = {field: getattr(block, field).cpu().numpy() for field in forest_cls._fields}
-            state.seal_block(index, start, stop, arrays)
+            with _telemetry_span("fit.grow_block", block=index, trees=stop - start):
+                block = _grow_block(tree_keys[trees], X, bag[trees], fidx[trees], height, extension_level)
+                arrays = {field: getattr(block, field).cpu().numpy() for field in forest_cls._fields}
+                state.seal_block(index, start, stop, arrays)
             faults.check_fit_block(index)  # a kill lands after the seal
         if on_block is not None:
             on_block(index, start, stop, resumed)
@@ -379,11 +382,15 @@ def _compute_and_set_threshold(model: "IsolationForestModel", X: torch.Tensor) -
     """Contamination thresholding (SharedTrainLogic.scala:175-242): with
     contamination 0 the threshold stays -1 and every label is 0; else it is
     the ``1 - contamination`` quantile of the training scores within
-    ``contaminationError``, and the observed contamination is checked."""
+    ``contaminationError``, and the observed contamination is checked.
+    The pass names the walk: the JAX package resolves ``auto`` here, but a
+    tuned ``dense`` could move an EIF fit's threshold (K3 and K4 split tied
+    rows differently), so the fit stays threshold-exact whatever the
+    autotuner's table holds."""
     p = model.params
     if p.contamination == 0.0:
         return
-    scores = model.score(X, nonfinite="allow")  # the policy was applied at fit
+    scores = model.score(X, nonfinite="allow", strategy="walk")  # the policy was applied at fit
     thr = contamination_threshold(scores, p.contamination, p.contamination_error)
     model.set_outlier_score_threshold(thr)
     observed = observed_contamination(scores, thr)
@@ -455,34 +462,78 @@ class IsolationForestModel:
         nonfinite: str = "warn",
         strategy: str = "auto",
         chunk_size: Optional[int] = None,
+        pipeline: Optional[bool] = None,
+        timeout_s: Optional[float] = None,
+        strict: bool = False,
         fold_monitor: bool = True,
     ) -> torch.Tensor:
         """Outlier scores ``2^(-E[h(x)]/c(n))`` of an ``[N, F]`` tensor, array
-        or DataFrame, as a float32 tensor on the model's device.
+        or DataFrame, as a float32 tensor on the model's device, inside a
+        ``model.score`` span.
+
+        Rows on the host stay there until the streaming executor stages them
+        chunk by chunk (``chunk_size``, ``pipeline``: see
+        :func:`~..ops.traversal.score_matrix`); rows already on the card are
+        chunked in place. Scores are bitwise equal however they are chunked.
         ``nonfinite``: NaN/inf policy (``"warn"``/``"raise"``/``"allow"``);
-        ``strategy``: ``"auto"``, ``"walk"`` or ``"dense"``. With a drift
-        monitor attached the batch is folded into it after scoring, unless
-        ``fold_monitor=False``; with none attached nothing more runs."""
-        X, _ = extract_features(X, self.params.features_col, nonfinite=nonfinite, device=self.device)
+        under ``"raise"`` the call raises before it returns scores or folds
+        the monitor. ``strategy``: ``"auto"`` (the measured autotuner),
+        ``"walk"`` or ``"dense"``. ``timeout_s`` arms the scoring watchdog,
+        which raises :class:`~..resilience.watchdog.WatchdogTimeout` on a
+        stall; ``strict`` turns an unknown ``ISOFOREST_TPU_STRATEGY`` pin
+        into :class:`~..resilience.degradation.DegradationError`. With a
+        drift monitor attached the batch is folded into it after scoring,
+        unless ``fold_monitor=False``."""
+        X, _ = extract_features(X, self.params.features_col, nonfinite="allow")
         expected = (
             self.total_num_features
             if self.total_num_features != UNKNOWN_TOTAL_NUM_FEATURES
             else None
         )
-        scores = score_matrix(
-            self.forest,
-            X,
-            self.num_samples,
-            strategy=strategy,
-            chunk_size=chunk_size,
-            expected_features=expected,
-            device=self.device,
-            cache=self._cache,
-        )
+        with _telemetry_span("model.score", rows=int(X.shape[0])):
+            scores = score_matrix(
+                self.forest,
+                X,
+                self.num_samples,
+                strategy=strategy,
+                chunk_size=chunk_size,
+                expected_features=expected,
+                device=self.device,
+                cache=self._cache,
+                nonfinite=nonfinite,
+                strict=strict,
+                timeout_s=timeout_s,
+                pipeline=pipeline,
+            )
         monitor = self._monitor
         if monitor is not None and fold_monitor:
             monitor.observe(scores, X)
         return scores
+
+    def warmup(self, batch_sizes=(1024,), strategy: str = "auto", width: Optional[int] = None
+               ) -> "IsolationForestModel":
+        """Build what a first request would otherwise pay for: the kernels,
+        the kernel tables and, for ``"auto"``, the autotuner's decision of
+        each batch size's power-of-two bucket (the buckets ``score`` keys
+        on), by scoring a zero matrix of each bucket from the host. Warm
+        with the strategy serving will use. A model that does not record
+        ``totalNumFeatures`` needs ``width``. Returns self."""
+        if width is None:
+            if self.total_num_features == UNKNOWN_TOTAL_NUM_FEATURES:
+                raise ValueError(
+                    "this model does not record totalNumFeatures (legacy); "
+                    "pass width=<serving feature count> to warmup"
+                )
+            width = self.total_num_features
+        from ..ops.traversal import batch_bucket
+
+        for bucket in sorted({batch_bucket(n) for n in batch_sizes}):
+            dummy = torch.zeros((bucket, max(int(width), 1)), dtype=torch.float32)
+            score_matrix(self.forest, dummy, self.num_samples, strategy=strategy, device=self.device,
+                         cache=self._cache)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
 
     def degradations(self):
         """The degradation events of this process (the ladder of
@@ -550,11 +601,9 @@ class IsolationForestModel:
         comes back as a copy with both columns appended, and is refused if
         it already has either; a tensor or array gives a dict of tensors."""
         p = self.params
-        X, frame = extract_features(
-            data, p.features_col, output_cols=(p.score_col, p.prediction_col),
-            nonfinite=nonfinite, device=self.device,
-        )
-        scores = self.score(X, nonfinite="allow")  # checked above
+        X, frame = extract_features(data, p.features_col, output_cols=(p.score_col, p.prediction_col),
+                                    nonfinite="allow")
+        scores = self.score(X, nonfinite=nonfinite)
         labels = self.predict(scores)
         if frame is None:
             return {p.score_col: scores.to(torch.float64), p.prediction_col: labels}

@@ -75,6 +75,7 @@ def ext_walk_sum(X: torch.Tensor, tables: PathRecords) -> torch.Tensor:
 
 def path_lengths_ext_walk(X: torch.Tensor, tables: PathRecords) -> torch.Tensor:
     """Mean path length over trees, ``f32[N]``: the walk's sum divided by the
-    tree count (a device tensor, so the quotient is a true division)."""
-    t = torch.tensor(float(tables.num_trees), dtype=torch.float32, device=X.device)
+    tree count (a device tensor, so the quotient is a true division; filled
+    on the device, so nothing waits for the copy of a host scalar)."""
+    t = torch.full((), float(tables.num_trees), dtype=torch.float32, device=X.device)
     return ext_walk_sum(X, tables) / t

@@ -11,12 +11,26 @@ reason, logged once per reason until :func:`reset_degradations`, counted on
 * ``dropped_trees``: a load the caller asked to salvage
   (``on_corrupt="drop"``) drops the corrupt trees and scores the rest;
 * ``drift_alert``: the drift monitor flags serving traffic that left the
-  training baseline; scores stay exact.
+  training baseline; scores stay exact;
+* ``pipeline_fallback``: the streaming executor cannot stage (no pinned
+  memory or copy stream, or the ``break_pipeline_stage`` fault) and copies
+  each chunk synchronously; scores are bitwise equal, only the overlap is
+  lost;
+* ``env_strategy_unknown``: an ``ISOFOREST_TPU_STRATEGY`` pin the port does
+  not know (``gather``, ``native``, ``pallas``, ``q16``, ...) resolves to
+  the static default, the walk.
+
+Under ``strict=True`` :func:`degrade` raises :class:`DegradationError`
+instead of taking the rung; ``pipeline_fallback`` is strict-exempt (its
+scores are bitwise equal), so only ``env_strategy_unknown`` passes it.
 
 The JAX package's scoring-strategy rungs (``native_unavailable``,
-``walk_off_tpu``, ``walk_unsupported``, ``scoring_timeout``, ...) fall back
-to another kernel. The port has no such fallback: a kernel that cannot
-run, or a card that is missing, raises.
+``walk_off_tpu``, ``walk_unsupported``, ``scoring_timeout``,
+``autotune_probe_failed``, ...) fall back to another kernel. The port has
+no such fallback: a kernel that cannot run, or a card that is missing,
+raises; a scoring timeout raises
+:class:`~isoforest_tpu_torch.resilience.watchdog.WatchdogTimeout`, and an
+autotune probe that raises propagates.
 """
 
 from __future__ import annotations
@@ -50,7 +64,22 @@ LADDER: Dict[str, str] = {
         "(score = 2^(-mean_h/c(n)) over kept trees); ensemble quality "
         "degrades gracefully with lost trees (FastForest, arxiv 2004.02423)"
     ),
+    "env_strategy_unknown": (
+        "unrecognised ISOFOREST_TPU_STRATEGY pin -> the static default (walk): "
+        "scores are the walk kernel's, within cross-strategy f32 tolerance of "
+        "any valid pin"
+    ),
+    "pipeline_fallback": (
+        "staging unavailable for the streaming executor -> synchronous "
+        "per-chunk copy: scores are BITWISE equal (every kernel is "
+        "row-independent; only the copy/compute overlap is lost), so this "
+        "rung is strict-exempt"
+    ),
 }
+
+
+class DegradationError(RuntimeError):
+    """A fallback was required but ``strict=True`` forbids it."""
 
 
 @dataclasses.dataclass
@@ -149,11 +178,16 @@ def reset_degradations(reason: Optional[str] = None) -> None:
     _REPORT.reset(reason)
 
 
-def degrade(reason: str, from_: str, to: str, detail: str = "") -> str:
+def degrade(reason: str, from_: str, to: str, detail: str = "", strict: bool = False) -> str:
     """Take one rung; returns ``to``. Logs ``detail`` once per reason (until
-    reset) and records an event every time."""
+    reset) and records an event every time; under ``strict`` raises
+    :class:`DegradationError` instead, and the caller must not fall back."""
     if reason not in LADDER:
         raise ValueError(f"unknown degradation reason {reason!r}; known rungs: {', '.join(sorted(LADDER))}")
+    if strict:
+        raise DegradationError(
+            f"strict mode forbids the {reason!r} fallback ({from_} -> {to}): {detail or LADDER[reason]}"
+        )
     first = _REPORT.record(reason, from_, to, detail)
     _DEGRADATIONS_TOTAL.inc(reason=reason)
     record_event("degradation", reason=reason, **{"from": from_, "to": to}, detail=detail or LADDER[reason])

@@ -1,6 +1,6 @@
 """Fault injection at the seams of the port (``isoforest_tpu/resilience/faults.py``).
 
-Production code consults this module at two seams, each a no-op when
+Production code consults this module at these seams, each a no-op when
 nothing is armed:
 
 * :func:`filter_read_bytes`, in ``io.avro``'s container read:
@@ -8,7 +8,15 @@ nothing is armed:
   (``=<offset>``, default three quarters in) and ``truncate_data`` reads a
   prefix (``=<bytes>``, default half), the torn-download case;
 * :func:`check_fit_block`, in a checkpointed fit: ``kill_fit_after_block=<k>``
-  raises right after block ``k`` is sealed, the preemption a resume exists for.
+  raises right after block ``k`` is sealed, the preemption a resume exists for;
+* :func:`check_strategy`, in ``score_matrix`` before a strategy runs:
+  ``raise_strategy=<name>`` makes that strategy raise;
+* :func:`maybe_slow_collective`, the streaming executor's prelude inside the
+  scoring watchdog: ``slow_collective`` stalls the call, the hung kernel
+  the watchdog exists to bound;
+* ``break_pipeline_stage``, read by ``ops.streaming.stage_available``:
+  staging reports unavailable and a streamed call takes the
+  ``pipeline_fallback`` rung.
 
 Faults arm with the :func:`inject` context manager or the
 ``ISOFOREST_TPU_FAULTS`` environment variable (comma-separated ``name`` or
@@ -21,11 +29,15 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Dict, List, Optional, Union
+import time
+from typing import Callable, Dict, List, Optional, Union
 
 FAULTS_ENV = "ISOFOREST_TPU_FAULTS"
 
-KNOWN_FAULTS = frozenset({"corrupt_avro", "truncate_data", "kill_fit_after_block"})
+KNOWN_FAULTS = frozenset({
+    "corrupt_avro", "truncate_data", "kill_fit_after_block", "raise_strategy", "slow_collective",
+    "break_pipeline_stage",
+})
 
 FaultValue = Union[bool, int, str]
 
@@ -115,3 +127,38 @@ def check_fit_block(block_index: int) -> None:
             f"injected fault: fit killed after sealing block {block_index} "
             f"(kill_fit_after_block={value!r}) — resume with fit(..., resume=True)"
         )
+
+
+def check_strategy(strategy: str) -> None:
+    """Raise :class:`FaultInjectedError` when ``raise_strategy`` names the
+    strategy about to run."""
+    target = get("raise_strategy")
+    if target is not None and str(target) == strategy:
+        raise FaultInjectedError(
+            f"injected fault: scoring strategy {strategy!r} forced to raise (raise_strategy={target!r})"
+        )
+
+
+def maybe_slow_collective(strategy: Optional[str] = None, clock: Callable[[], float] = time.monotonic,
+                          sleep: Callable[[float], None] = time.sleep) -> None:
+    """Stall while ``slow_collective`` is armed: the hung kernel the scoring
+    watchdog bounds.
+
+    Value forms: ``True`` (stall any caller, 30 s cap), a number (stall any
+    caller, that many seconds), or a strategy name (stall only when
+    ``strategy`` matches, 30 s cap). The stall re-checks its arming every
+    10 ms, so leaving :func:`inject` releases an abandoned watchdog thread
+    promptly."""
+    value = get("slow_collective")
+    if value is None or value is False:
+        return
+    limit = 30.0
+    if not isinstance(value, bool):
+        try:
+            limit = float(value)
+        except (TypeError, ValueError):
+            if strategy is None or str(value) != strategy:
+                return  # a stall named for another strategy
+    start = clock()
+    while active("slow_collective") and clock() - start < limit:
+        sleep(0.01)

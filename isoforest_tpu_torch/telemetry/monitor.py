@@ -383,7 +383,9 @@ class ScoreMonitor:
                     f"got shape {tuple(X.shape)}"
                 )
             step = max(1, -(-X.shape[0] // self.max_feature_rows_per_batch))
-            sub = X[::step]
+            # rows left on the host (model.score streams them) fold on the
+            # scores' device: only the stride subsample is copied
+            sub = X[::step].to(v.device)
             sub_rows = int(sub.shape[0])
             if self._uniform:
                 lo, scale, offsets = self._feature_consts(sub.device, sub.dtype)

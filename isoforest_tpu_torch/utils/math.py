@@ -9,6 +9,7 @@ runs where the path lengths are.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -35,6 +36,13 @@ def avg_path_length(num_instances) -> torch.Tensor:
     return torch.where(n > one, c, torch.zeros((), dtype=torch.float32))
 
 
+@functools.lru_cache(maxsize=64)
+def _avg_path_length_value(num_samples: int) -> float:
+    """``c(num_samples)`` as a float (exact: a float32 value), computed once
+    per sample count; every score call needs it."""
+    return float(avg_path_length(num_samples))
+
+
 def height_limit(num_samples: int) -> int:
     """Tree height limit ``ceil(log2(n))`` (IsolationTree.scala:60-61)."""
     if num_samples < 2:
@@ -58,10 +66,11 @@ def score_from_path_length(mean_path_length: torch.Tensor, num_samples: int) -> 
 
     ``c(n)`` is a 0-dim tensor on the path lengths' device, so the quotient
     is a true division there (CUDA turns division by a host scalar into a
-    multiplication by its reciprocal).
+    multiplication by its reciprocal); it is filled there from its float32
+    value, so the call does not wait for a host-to-device copy.
     """
     pl = torch.as_tensor(mean_path_length, dtype=torch.float32)
-    c = avg_path_length(num_samples).to(pl.device)
+    c = torch.full((), _avg_path_length_value(int(num_samples)), dtype=torch.float32, device=pl.device)
     return torch.exp2(-pl / c)
 
 

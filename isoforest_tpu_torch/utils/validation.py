@@ -74,18 +74,34 @@ def extract_features(
     return X, frame
 
 
-def check_non_finite(X: torch.Tensor, policy: str = "warn") -> None:
-    """NaN/inf input policy: ``"warn"`` logs once per call, ``"raise"``
-    raises ValueError, ``"allow"`` is silent. Trees compare with ``>=``, so
-    NaN goes left at every node."""
+def check_nonfinite_policy(policy: str) -> None:
     if policy not in NONFINITE_POLICIES:
         raise ValueError(
             f"nonfinite policy must be one of {NONFINITE_POLICIES}, got {policy!r}"
         )
+
+
+def check_non_finite(X: torch.Tensor, policy: str = "warn") -> None:
+    """NaN/inf input policy: ``"warn"`` logs once per call, ``"raise"``
+    raises ValueError, ``"allow"`` is silent. Trees compare with ``>=``, so
+    NaN goes left at every node."""
+    check_nonfinite_policy(policy)
     if policy == "allow" or X.numel() == 0:
         return
-    bad = int((~torch.isfinite(X)).sum())
-    if not bad:
+    report_non_finite(int(count_non_finite(X)), policy)
+
+
+def count_non_finite(X: torch.Tensor) -> torch.Tensor:
+    """The count of NaN/inf values in ``X``, an int64 scalar on ``X``'s
+    device (no synchronisation). A streamed call adds one per chunk and
+    reads the total once, with :func:`report_non_finite`."""
+    return (~torch.isfinite(X)).sum()
+
+
+def report_non_finite(bad: int, policy: str) -> None:
+    """Apply ``policy`` to ``bad`` non-finite values: the message of
+    :func:`check_non_finite`, logged (``"warn"``) or raised (``"raise"``)."""
+    if policy == "allow" or not bad:
         return
     msg = (
         f"input contains {bad} non-finite feature values (nan/inf); isolation "
