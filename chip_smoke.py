@@ -178,6 +178,23 @@ Then the scoring executor, the autotuner, the watchdog and spans:
     on: ``pipeline.chunk`` ranges inside ``score_matrix`` inside
     ``model.score``, and ``telemetry.spans.summary()`` lists them.
 
+Then the quantized (q16) plane, in torch ops (no kernel of its own):
+
+28. q16: both fixture models take ``set_scoring_representation("q16")``,
+    which on the card keeps the f32 tables; the q16 plane's build time
+    alone, and its bytes beside the walk's and the dense kernel's tables;
+    the 1M host rows through ``strategy="q16"``,
+    which launches no path kernel: the first 65,536 scores equal the port's
+    gather walk exactly, the mammography rows' scores lie within 2e-6 of
+    the committed JAX scores, a call under the watchdog equals them; a
+    save and reload on the card keeps ``"q16"``; ``auto`` at 1, 4,096 and
+    1M rows keys with ``|q16``, probes walk and dense only, equals its
+    winner exactly, and its cold resolution is timed; warm ``model.score`` medians of walk and dense
+    (in turns) and of q16 (alone) at 1, 4,096 and 1M rows; then a seeded 800-tree fit of 65,536
+    uniform rows (more than 65,535 distinct thresholds) takes the ``q16_unsupported``
+    rung onto ``walk_sum`` (counted), with the walk's scores, raises under
+    ``strict=True`` and refuses the representation.
+
 Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
 with its launches in the 1M-row fit and ``ext_walk_sum`` with its launches
 in the 1M-row EIF fit, ``fit_launches``), the ``nvidia-smi`` name and
@@ -1388,15 +1405,15 @@ WATCHDOG_DEADLINE_S = 0.5
 WATCHDOG_SLACK_S = 0.5  # how late the timeout may surface past its deadline
 
 
-def wall_ms(fns: dict, reps: int = 15) -> dict:
+def wall_ms(fns: dict, reps: int = 15, warmups: int = 2) -> dict:
     """Median host-clock ms of each ``fns[name]()`` between synchronisations,
-    after two warm-ups, the calls taken in turns so that the host's noise
-    spreads over all of them."""
+    after ``warmups`` warm-ups, the calls taken in turns so that the host's
+    noise spreads over all of them."""
     import torch
 
     for fn in fns.values():
-        fn()
-        fn()
+        for _ in range(warmups):
+            fn()
     lat = {name: [] for name in fns}
     for _ in range(reps):
         for name, fn in fns.items():
@@ -1496,8 +1513,10 @@ def executor_phases(dev, X_m, X_big) -> None:
     # 25. autotune: cold, then warm, per fixture and bucket, on a fresh table
     os.environ["ISOFOREST_TPU_AUTOTUNE_PATH"] = str(ROOT / "build" / f"autotune_phase_{os.getpid()}.json")
     tuning.reset_cost_model()
-    counterparts = {"standard": {"walk": "jax_scores.npy", "dense": "jax_scores.npy"},
-                    "extended": {"walk": "jax_walk_scores.npy", "dense": "jax_pallas_scores.npy"}}
+    # q16 equals the gather walk, whose JAX scores are each fixture's jax_scores.npy
+    counterparts = {"standard": {"walk": "jax_scores.npy", "dense": "jax_scores.npy", "q16": "jax_scores.npy"},
+                    "extended": {"walk": "jax_walk_scores.npy", "dense": "jax_pallas_scores.npy",
+                                 "q16": "jax_scores.npy"}}
     out = {"phase": "autotune"}
     for kind, model in models.items():
         rows, probed = {}, set()
@@ -1586,6 +1605,130 @@ def executor_phases(dev, X_m, X_big) -> None:
             and out["score_matrix_nested_in_model_score"], f"the profiler ranges: {out['profiler_ranges']}")
     require(parents.get("pipeline.chunk") == "score_matrix" and parents.get("score_matrix") == "model.score"
             and all(name in summary for name in names), f"the spans: {parents}")
+
+
+Q16_EXACT_ROWS = 65_536  # the q16 scores held to the gather walk exactly on these rows
+
+
+def q16_phases(dev, X_m, X_big) -> None:
+    """Phase 28: the quantized (q16) scoring plane on both fixture models:
+    the gather walk's scores exactly, the committed JAX scores within 2e-6,
+    save and load, the ``q16_unsupported`` rung onto the walk kernel, the
+    ``|q16`` autotune facet over a pool of walk and dense, and warm times
+    beside walk and dense."""
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import IsolationForest, load_model, tuning
+    from isoforest_tpu_torch.ops import ext_path
+    from isoforest_tpu_torch.ops.scoring_layout import layout_nbytes, quantized_unsupported_reason
+    from isoforest_tpu_torch.ops.traversal import extended_path_lengths, scoring_tables, standard_path_lengths
+    from isoforest_tpu_torch.resilience.degradation import DegradationError, degradation_report
+    from isoforest_tpu_torch.utils.math import score_from_path_length
+
+    t_phase = time.perf_counter()
+    os.environ["ISOFOREST_TPU_AUTOTUNE_PATH"] = str(ROOT / "build" / f"autotune_q16_{os.getpid()}.json")
+    tuning.reset_cost_model()
+    fixtures = {"standard": (FIXTURE, standard_path_lengths), "extended": (EIF_FIXTURE, extended_path_lengths)}
+    Xd_exact = torch.from_numpy(X_big[:Q16_EXACT_ROWS]).to(dev)
+    out = {"phase": "q16", "rows": FULL_ROWS, "exact_rows": Q16_EXACT_ROWS}
+    for kind, (path, gather) in fixtures.items():
+        model = load_model(str(path / "model"))
+        # the f32 tables the model serves walk and dense from
+        model.score(X_m[:1], strategy="walk")
+        model.score(X_m[:1], strategy="dense")
+        mdev = model.device  # the tables' cache keys name it (cuda:0)
+        f32_bytes = {s: layout_nbytes(model._cache[(s, mdev)]) for s in ("walk", "dense")}
+        # on the card the preference keeps the f32 tables auto serves from;
+        # the plane is built at the first q16 call, timed here alone
+        model.set_scoring_representation("q16")
+        require(model.scoring_representation == "q16" and ("walk", mdev) in model._cache
+                and ("q16", mdev) not in model._cache, f"{kind}: set_scoring_representation on the card")
+        q, build_s = synced(lambda: scoring_tables(model.forest, "q16", mdev, model._cache))
+        for name in ext_path.launches:
+            ext_path.launches[name] = 0
+        s_q16 = model.score(X_big, strategy="q16")
+        torch.cuda.synchronize()
+        path_kernel_launches = dict(ext_path.launches)
+        require(tuple(s_q16.shape) == (FULL_ROWS,) and bool(torch.isfinite(s_q16).all())
+                and bool(((s_q16 > 0) & (s_q16 <= 1)).all()), f"{kind}: bad q16 scores")
+        require(not any(path_kernel_launches.values()), f"{kind}: q16 launched a path kernel {path_kernel_launches}")
+        want = score_from_path_length(gather(model.forest, Xd_exact), model.num_samples)
+        gap = float((s_q16[:Q16_EXACT_ROWS] - want).abs().max())
+        require(torch.equal(s_q16[:Q16_EXACT_ROWS], want), f"{kind}: q16 vs the gather walk differ by {gap}")
+        committed = np.load(path / "jax_scores.npy")
+        s_m = model.score(X_m, strategy="q16").cpu().numpy()
+        jax_err = float(np.abs(s_m - committed).max())
+        require(jax_err <= 2e-6, f"{kind}: q16 vs the committed JAX scores: {jax_err}")
+        timed = model.score(X_big[:Q16_EXACT_ROWS], strategy="q16", timeout_s=60.0)
+        require(torch.equal(timed, s_q16[:Q16_EXACT_ROWS]), f"{kind}: the q16 call under the watchdog differs")
+        # save and load on the card keep the representation
+        saved = ROOT / "build" / f"q16_{kind}_{os.getpid()}"
+        model.save(str(saved), overwrite=True)
+        back = load_model(str(saved))
+        require(back.scoring_representation == "q16" and ("walk", back.device) in back._cache,
+                f"{kind}: the reloaded model is {back.scoring_representation}")
+        require(torch.equal(back.score(X_big[:4096], strategy="q16"), s_q16[:4096]), f"{kind}: reloaded q16 scores")
+        # auto: the |q16 facet over a pool of walk and dense, the winner's
+        # scores, and the cold resolution's cost
+        auto = {}
+        for n in (1, 4096, FULL_ROWS):
+            batch = X_big[:n]
+            d, cold_s = synced(lambda: tuning.resolve_decision(model.forest, batch, model.num_samples,
+                                                               cache=model._cache))
+            require(d.key.endswith("|q16") and set(d.timings_s or {}) == {"walk", "dense"},
+                    f"{kind} {n}: key {d.key}, probed {d.timings_s}")
+            require(torch.equal(model.score(batch), model.score(batch, strategy=d.strategy)),
+                    f"{kind} {n} rows: auto differs from its winner {d.strategy}")
+            probe_rows = tuning.table_snapshot()["entries"][d.key]["probe_rows"]
+            auto[n] = {"winner": d.strategy, "source": d.source, "probe_s": d.timings_s, "probe_rows": probe_rows,
+                       "resolve_cold_s": cold_s}
+        # warm model.score medians: walk and dense in turns, then q16 alone,
+        # so the q16 calls' long runs and large temporaries do not sit between
+        # the others' (the EIF's q16, 0.3-1.4 s a call: five calls, or three
+        # at 1M rows, after one warm-up)
+        times = {}
+        for n in (1, 4096, FULL_ROWS):
+            batch = X_big[:n]
+            times[n] = wall_ms({s: (lambda s=s: model.score(batch, strategy=s)) for s in ("walk", "dense")})
+            slow = kind == "extended"
+            times[n].update(wall_ms({"q16": lambda: model.score(batch, strategy="q16")},
+                                    reps=(3 if n == FULL_ROWS else 5) if slow else 15, warmups=1 if slow else 2))
+        out[kind] = {"q16_build_s": build_s, "q16_table_bytes": layout_nbytes(q), "f32_table_bytes": f32_bytes,
+                     "q16_vs_gather_max_abs": gap, "q16_vs_committed_jax_max_abs": jax_err,
+                     "path_kernel_launches_in_q16_call": path_kernel_launches, "auto": auto, "score_ms": times}
+
+    # a forest outside the fences: a seeded 800-tree fit of uniform rows holds
+    # about 100 internal nodes a tree, over 65,535 distinct thresholds in all
+    X_wide = np.random.default_rng(SEED + 3).random((65_536, X_big.shape[1]), dtype=np.float32)
+    wide = IsolationForest(num_estimators=800, max_samples=256.0, random_seed=3).fit(X_wide, baseline=False)
+    reason = quantized_unsupported_reason(wide.forest)
+    require(reason is not None and "distinct thresholds" in reason, f"the 800-tree fit fits the q16 plane: {reason}")
+    rungs_before = degradation_report().count("q16_unsupported")
+    ext_path.launches["walk_sum"] = 0
+    s_rung = wide.score(X_wide[:4096], strategy="q16")
+    torch.cuda.synchronize()
+    rung_launches = ext_path.launches["walk_sum"]
+    require(rung_launches > 0 and degradation_report().count("q16_unsupported") == rungs_before + 1,
+            f"the q16_unsupported rung: {rung_launches} walk_sum launches")
+    require(torch.equal(s_rung, wide.score(X_wide[:4096], strategy="walk")), "the rung's scores are not the walk's")
+    try:
+        wide.score(X_wide[:4096], strategy="q16", strict=True)
+        strict_raised = False
+    except DegradationError:
+        strict_raised = True
+    try:
+        wide.set_scoring_representation("q16")
+        fence_raised = False
+    except ValueError:
+        fence_raised = True
+    require(strict_raised and fence_raised, "strict q16 or the representation accepted an ineligible forest")
+    require(not tuning.decision_key("cuda", wide.forest, 4096, X_wide.shape[1]).endswith("|q16")
+            and "q16" not in tuning.eligible_strategies(wide.forest, "cuda"), "the ineligible forest keys with |q16")
+    out["ineligible"] = {"trees": wide.forest.num_trees, "reason": reason, "walk_sum_launches": rung_launches,
+                         "strict_raised": strict_raised, "representation_refused": fence_raised}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
 
 
 def main() -> int:
@@ -1829,6 +1972,7 @@ def main() -> int:
     ext_kernels[0]["fit_launches"] = eif_fit_phases(dev, X_m, y_m, X_big)
     model_phases(dev, X_m, X_big)
     executor_phases(dev, X_m, X_big)
+    q16_phases(dev, X_m, X_big)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",

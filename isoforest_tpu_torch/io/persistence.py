@@ -374,7 +374,7 @@ def _write_metadata(path: str, metadata: dict) -> None:
 
 
 def _model_metadata(model, class_name: str) -> dict:
-    return {
+    meta = {
         "class": class_name,
         "timestamp": int(time.time() * 1000),
         "sparkVersion": SPARK_VERSION_STRING,
@@ -386,6 +386,13 @@ def _model_metadata(model, class_name: str) -> dict:
         "numFeatures": model.num_features,
         "totalNumFeatures": model.total_num_features,
     }
+    # tolerated extra: the preferred scoring representation, written only
+    # when it is not the default (readers that do not know it lose nothing
+    # but the preference; the node table is always the exact f32 form)
+    representation = getattr(model, "scoring_representation", "f32")
+    if representation != "f32":
+        meta["scoringRepresentation"] = representation
+    return meta
 
 
 def _save_model(model, path: str, overwrite: bool, metadata: dict, schema: dict, payload: str, trees) -> None:
@@ -714,10 +721,27 @@ def _read_forest(path: str, metadata: dict, on_corrupt: str, data_issues, payloa
     return to_forest(_group_trees(_read_data(path), payload)), None
 
 
+def _restore_representation(model, metadata: dict) -> None:
+    """Restore the ``scoringRepresentation`` extra. Absent means ``"f32"``;
+    an unknown value, or ``"q16"`` for a forest outside the plane's fences
+    (one edited on disk, or salvaged smaller), logs a warning and stays
+    ``"f32"``: the representation is a preference, never an input to the
+    scores."""
+    representation = metadata.get("scoringRepresentation", "f32")
+    if representation == "f32":
+        return
+    try:
+        model.set_scoring_representation(representation)
+    except ValueError as exc:
+        logger.warning("ignoring persisted scoringRepresentation=%r: %s", representation, exc)
+
+
 def _finish_load(model, path: str, metadata: dict, load_report):
-    """The load report, the baseline sidecar and the threshold."""
+    """The load report, the baseline sidecar, the scoring representation
+    and the threshold."""
     model.load_report = load_report
     model.baseline = _read_baseline(path)
+    _restore_representation(model, metadata)
     threshold = float(metadata.get("outlierScoreThreshold", -1.0))
     if threshold >= 0:
         model.set_outlier_score_threshold(threshold)

@@ -55,6 +55,13 @@ def _new_uid(prefix: str) -> str:
     return f"{prefix}_{uuid.uuid4().hex[:12]}"
 
 
+# The scoring representations a model can prefer, saved as the tolerated
+# ``scoringRepresentation`` metadata extra: the exact f32 tables, or the
+# rank-quantized q16 plane (ops/scoring_layout.py), which takes the f32
+# walk's branch at every node.
+SCORING_REPRESENTATIONS = ("f32", "q16")
+
+
 def _resolve_subsample_trees(subsample_trees, num_estimators: int) -> int:
     """FastForest-style subbagging (arxiv 2004.02423): an int is a tree
     count, a float in (0, 1] a fraction of ``numEstimators``. Returns the
@@ -316,6 +323,7 @@ def _grow_and_threshold(p, X, resolved, extended: bool, key, checkpoint, baselin
         forest, fit_checkpoint = grow(None)
         model = IsolationForestModel(forest=forest, **common)
     model.fit_checkpoint = fit_checkpoint
+    model.finalize_scoring()
     _compute_and_set_threshold(model, X)
     if baseline and _baseline_env_enabled():
         _capture_fit_baseline(model, X)
@@ -442,6 +450,10 @@ class IsolationForestModel:
         self.baseline = None
         # the drift monitor every score() folds into, while attached
         self._monitor = None
+        # the preferred scoring representation, "f32" or "q16": saved as the
+        # scoringRepresentation extra and restored on load; the node table on
+        # disk is always the exact f32 Avro form
+        self.scoring_representation = "f32"
 
     @property
     def device(self) -> torch.device:
@@ -454,6 +466,52 @@ class IsolationForestModel:
                 f"outlierScoreThreshold must be in [0, 1] (or -1 = unset), got {value}"
             )
         self.outlier_score_threshold = float(value)
+        return self
+
+    def set_scoring_representation(self, value: str) -> "IsolationForestModel":
+        """Record the preferred scoring representation, ``"f32"`` (default)
+        or ``"q16"``, the rank-quantized plane, and return self. ``"q16"``
+        needs a forest inside the plane's fences
+        (:func:`~..ops.scoring_layout.quantized_unsupported_reason`; else a
+        ValueError). Off the card it drops the f32 tables the model holds
+        and builds the q16 plane now, as the JAX package does. On the card
+        the preference is only recorded: ``auto`` serves the walk and dense
+        kernels there, which read the f32 tables, and the q16 plane is
+        larger than they are, so the model keeps them and builds the plane
+        at its first ``strategy="q16"`` call. Save and load carry the
+        preference. It does not pin the kernel: ``strategy="auto"`` still
+        measures."""
+        if value not in SCORING_REPRESENTATIONS:
+            raise ValueError(
+                f"scoring representation must be one of {'/'.join(SCORING_REPRESENTATIONS)}, got {value!r}"
+            )
+        if value == "q16":
+            from ..ops.scoring_layout import quantized_unsupported_reason
+
+            reason = quantized_unsupported_reason(self.forest, self._cache)
+            if reason is not None:
+                raise ValueError(f"this forest cannot take the q16 representation: {reason}")
+        self.scoring_representation = value
+        if value == "q16":
+            if self.device.type != "cuda":
+                # the f32 tables are built again if a strategy that reads them runs
+                for key in [k for k in self._cache if isinstance(k, tuple) and k[0] != "q16"]:
+                    del self._cache[key]
+            self.finalize_scoring()
+        return self
+
+    def finalize_scoring(self) -> "IsolationForestModel":
+        """Build the scoring tables of the preferred representation on the
+        model's device, once: the q16 plane for ``"q16"`` off the card, else
+        the walk's records (the static default and the fit's threshold
+        pass; on the card, what ``auto`` serves). ``fit`` calls this; a
+        loaded model builds its tables on first score. Returns self."""
+        from ..ops.traversal import scoring_tables
+
+        q16 = self.scoring_representation == "q16" and self.device.type != "cuda"
+        strategy = "q16" if q16 else "walk"
+        with _telemetry_span("model.finalize_scoring", trees=self.forest.num_trees):
+            scoring_tables(self.forest, strategy, self.device, self._cache)
         return self
 
     def score(
@@ -478,10 +536,12 @@ class IsolationForestModel:
         ``nonfinite``: NaN/inf policy (``"warn"``/``"raise"``/``"allow"``);
         under ``"raise"`` the call raises before it returns scores or folds
         the monitor. ``strategy``: ``"auto"`` (the measured autotuner),
-        ``"walk"`` or ``"dense"``. ``timeout_s`` arms the scoring watchdog,
-        which raises :class:`~..resilience.watchdog.WatchdogTimeout` on a
-        stall; ``strict`` turns an unknown ``ISOFOREST_TPU_STRATEGY`` pin
-        into :class:`~..resilience.degradation.DegradationError`. With a
+        ``"walk"``, ``"dense"`` or ``"q16"``. ``timeout_s`` arms the
+        scoring watchdog, which raises
+        :class:`~..resilience.watchdog.WatchdogTimeout` on a stall;
+        ``strict`` turns an unknown ``ISOFOREST_TPU_STRATEGY`` pin, or
+        ``"q16"`` on a forest outside its fences, into
+        :class:`~..resilience.degradation.DegradationError`. With a
         drift monitor attached the batch is folded into it after scoring,
         unless ``fold_monitor=False``."""
         X, _ = extract_features(X, self.params.features_col, nonfinite="allow")

@@ -8,6 +8,15 @@ scores are few enough; above that, with a non-zero error budget, the
 refined histogram of the JAX package answers, ported as it is (including
 the FLT_MIN misranking ROADMAP §C records). The scores stay on their
 device; only the histogram's counts and the answer come back.
+
+XLA:CPU runs the JAX package's float32 steps with subnormals flushed: an
+operand below FLT_MIN reads as a zero of its sign, and so does a result
+(FTZ/DAZ), in arithmetic, comparisons and ``min``/``max`` alike; torch's
+CPU and CUDA ops keep subnormals. The histogram's steps therefore flush
+explicitly (:func:`_flush`), and a NaN bin goes where XLA's float-to-int
+convert puts it, bin 0, by an explicit ``torch.where`` rather than by a
+cast whose result differs between devices. The same bits come out on the
+CPU and on the card.
 """
 
 from __future__ import annotations
@@ -34,11 +43,17 @@ def _f32_resolution(lo: float, hi: float) -> float:
     return float(scale * 2.0 ** (-24))
 
 
+def _flush(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with each subnormal replaced by a zero of its sign, as XLA:CPU
+    reads an operand and writes a result (NaN and the infinities stay)."""
+    return torch.where(t.abs() < _FLOAT32_TINY, torch.copysign(torch.zeros_like(t), t), t)
+
+
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
     """A host float as the float32 scalar tensor the reference's weakly
     typed Python float becomes, on ``like``'s device (a device tensor, so
-    a division stays a division on the card)."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    a division stays a division on the card), flushed as XLA reads it."""
+    return _flush(torch.tensor(value, dtype=torch.float32, device=like.device))
 
 
 def histogram_quantile(
@@ -61,21 +76,26 @@ def histogram_quantile(
     the device, the edges in Python floats.
     """
     scores = torch.as_tensor(scores).to(torch.float32)
+    # the scores as every float32 step of the reference reads them
+    flushed = _flush(scores)
     n = scores.shape[0]
     if lo is None:
-        lo = float(scores.min())
+        lo = float(flushed.min())
     if hi is None:
-        hi = float(scores.max())
+        hi = float(flushed.max())
     target = max(int(math.ceil(q * n)), 1)
     rank_budget = max(int(eps * n), 1)
     for _ in range(max_passes):
         width = hi - lo
         if width <= 0:
             break
-        rel = torch.floor((scores - _f32(lo, scores)) / _f32(width, scores) * num_bins)
-        bins = rel.clamp(-1, num_bins).to(torch.int64)
+        rel = _flush(flushed - _f32(lo, scores))
+        rel = _flush(rel / _f32(width, scores))
+        rel = torch.floor(_flush(rel * num_bins))
+        # XLA's convert puts a NaN at 0; the clip leaves no infinity
+        bins = torch.where(rel.isnan(), 0.0, rel.clamp(-1, num_bins)).to(torch.int64)
         # the last bin is right-closed, including scores that round up to it
-        bins = torch.where(scores <= _f32(hi, scores), bins.clamp(max=num_bins - 1), bins)
+        bins = torch.where(flushed <= _f32(hi, scores), bins.clamp(max=num_bins - 1), bins)
         # slot 0 counts scores below lo
         all_counts = torch.bincount(bins + 1, minlength=num_bins + 2).cpu().numpy()
         counts = all_counts[1 : num_bins + 1]
@@ -91,7 +111,7 @@ def histogram_quantile(
         if window <= rank_budget or (hi - lo) <= _f32_resolution(lo, hi):
             break
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=scores.device)
-    return float(torch.where(scores >= _f32(lo, scores), scores, inf).min())
+    return float(torch.where(flushed >= _f32(lo, scores), flushed, inf).min())
 
 
 def contamination_threshold(

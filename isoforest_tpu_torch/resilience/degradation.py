@@ -17,12 +17,16 @@ reason, logged once per reason until :func:`reset_degradations`, counted on
   each chunk synchronously; scores are bitwise equal, only the overlap is
   lost;
 * ``env_strategy_unknown``: an ``ISOFOREST_TPU_STRATEGY`` pin the port does
-  not know (``gather``, ``native``, ``pallas``, ``q16``, ...) resolves to
-  the static default, the walk.
+  not know (``gather``, ``native``, ``pallas``, ...) resolves to the static
+  default, the walk;
+* ``q16_unsupported``: ``strategy="q16"`` on a forest outside the quantized
+  plane's fences runs the walk kernel; the JAX package runs its gather
+  walk, which the port has only as a test reference.
 
 Under ``strict=True`` :func:`degrade` raises :class:`DegradationError`
 instead of taking the rung; ``pipeline_fallback`` is strict-exempt (its
-scores are bitwise equal), so only ``env_strategy_unknown`` passes it.
+scores are bitwise equal), so ``env_strategy_unknown`` and
+``q16_unsupported`` pass it.
 
 The JAX package's scoring-strategy rungs (``native_unavailable``,
 ``walk_off_tpu``, ``walk_unsupported``, ``scoring_timeout``,
@@ -68,6 +72,13 @@ LADDER: Dict[str, str] = {
         "unrecognised ISOFOREST_TPU_STRATEGY pin -> the static default (walk): "
         "scores are the walk kernel's, within cross-strategy f32 tolerance of "
         "any valid pin"
+    ),
+    "q16_unsupported": (
+        "q16 -> walk for forests outside the quantized fences "
+        "(scoring_layout.quantized_unsupported_reason): the walk kernel's "
+        "scores, within cross-strategy f32 tolerance of the gather walk an "
+        "eligible q16 run equals bitwise, so this rung changes the kernel, "
+        "never the decisions"
     ),
     "pipeline_fallback": (
         "staging unavailable for the streaming executor -> synchronous "

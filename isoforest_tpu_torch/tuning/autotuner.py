@@ -8,10 +8,15 @@ best-of-k timed probe of every eligible strategy and persists the winner
 
 * **The pool.** ``walk`` and ``dense``, in that order, so ties go to the
   walk; ``dense`` only for trees within ``dense.DENSE_MAX_HEIGHT``, the
-  height fence of the dense kernels of both forest types
-  (:func:`eligible_strategies`). The platform is the device type, ``cuda``
-  or ``cpu``. The JAX package's ``|q16`` key facet waits for the quantized
-  plane, and the ``|jittable`` pool for the sharded paths.
+  height fence of the dense kernels of both forest types; on the CPU also
+  ``q16``, last, for forests inside the quantized plane's fences
+  (:func:`eligible_strategies`). On the card ``q16`` is torch ops, 10-560x
+  slower than the walk and dense kernels (PERF.md), so probing it would
+  only add its time to a cold key's first call: the JAX package likewise
+  pools only strategies that can serve on the platform. Forests inside the
+  fences key with the JAX package's ``|q16`` facet on every platform, so
+  the keys equal its keys. The platform is the device type, ``cuda`` or
+  ``cpu``. The ``|jittable`` pool waits for the sharded paths.
 * **The probe.** The leading rows of the batch, tiled up to
   ``min(batch bucket, chunk rows, cap)`` rows and put on the device, so the
   probe times what one chunk of the call will run and not the copy of X.
@@ -139,26 +144,40 @@ def model_bucket(forest, num_features: int) -> str:
     return base + (f"k{forest.k}" if _extended(forest) else "")
 
 
-def decision_key(platform: str, forest, num_rows: int, num_features: int) -> str:
+def decision_key(platform: str, forest, num_rows: int, num_features: int,
+                 cache: Optional[dict] = None) -> str:
     """The persisted table's key: the JAX package's for the same forest and
-    batch, but for the platform string and the ``|q16`` facet."""
+    batch, but for the platform string, the ``|q16`` facet of a forest the
+    q16 plane covers included. ``cache``, the caller's per-forest dict,
+    keeps the fence's verdict
+    (:func:`~..ops.scoring_layout.quantized_unsupported_reason`)."""
+    from ..ops.scoring_layout import quantized_eligible
     from ..ops.traversal import batch_bucket
 
     ext = "ext" if _extended(forest) else "std"
-    return f"v1|{platform}|{model_bucket(forest, num_features)}|b{batch_bucket(num_rows)}|{ext}"
+    key = f"v1|{platform}|{model_bucket(forest, num_features)}|b{batch_bucket(num_rows)}|{ext}"
+    return key + "|q16" if quantized_eligible(forest, cache) else key
 
 
 # -- eligibility ----------------------------------------------------------
 
 
-def eligible_strategies(forest, platform: str = "cuda") -> Tuple[str, ...]:
-    """Strategies worth probing for this forest, in preference order (ties
-    in the timed ranking go to the front): the walk, then ``dense`` for
-    trees within the dense kernels' height fence. The same on every
-    platform; ``platform`` is accepted for the JAX package's signature."""
+def eligible_strategies(forest, platform: str = "cuda", cache: Optional[dict] = None) -> Tuple[str, ...]:
+    """Strategies worth probing for this forest on ``platform``, in
+    preference order (ties in the timed ranking go to the front): the walk,
+    then ``dense`` for trees within the dense kernels' height fence, then,
+    off the card, ``q16`` for forests inside the quantized plane's fences
+    (the module docstring says why the card leaves it out). ``cache`` as
+    for :func:`decision_key`."""
     from ..ops.dense import DENSE_MAX_HEIGHT
+    from ..ops.scoring_layout import quantized_eligible
 
-    return ("walk", "dense") if forest.height <= DENSE_MAX_HEIGHT else ("walk",)
+    pool = ["walk"]
+    if forest.height <= DENSE_MAX_HEIGHT:
+        pool.append("dense")
+    if platform != "cuda" and quantized_eligible(forest, cache):
+        pool.append("q16")
+    return tuple(pool)
 
 
 # -- probing --------------------------------------------------------------
@@ -267,7 +286,7 @@ def resolve_decision(
     device = torch.device(device) if device is not None else forest.device
     platform, site, static_default = device.type, "score_matrix", STATIC_DEFAULT
     n = int(X.shape[0])
-    key = decision_key(platform, forest, n, int(X.shape[1]))
+    key = decision_key(platform, forest, n, int(X.shape[1]), cache)
 
     pin = os.environ.get("ISOFOREST_TPU_STRATEGY") or None
     if pin is not None:
@@ -282,7 +301,7 @@ def resolve_decision(
         emit_decision(static_default, "fallback", key, site)
         return Decision(static_default, "fallback", key)
 
-    eligible = eligible_strategies(forest, platform)
+    eligible = eligible_strategies(forest, platform, cache)
     entry, fresh = cost_model().lookup(key)
     if entry is not None and fresh and not refresh and entry["strategy"] in eligible:
         emit_decision(entry["strategy"], "table", key, site)

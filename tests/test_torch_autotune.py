@@ -82,29 +82,32 @@ class TestKeys:
     @pytest.mark.parametrize("width", [5, 129, 40_000])
     def test_key_equals_the_jax_packages(self, models, rows, width):
         """The same forest, batch and width key alike in both packages, but
-        for the platform string and the JAX package's ``|q16`` facet."""
+        for the platform string, the ``|q16`` facet included."""
         _, std, ext = models
         jax_std = JaxForest(*(a.numpy() for a in std.forest))
         jax_ext = JaxExtForest(*(a.numpy() for a in ext.forest))
         for port, jax in ((std.forest, jax_std), (ext.forest, jax_ext)):
-            want = jax_tuning.decision_key("cpu", jax, rows, width).removesuffix("|q16")
+            want = jax_tuning.decision_key("cpu", jax, rows, width)
+            assert want.endswith("|q16")
             assert tuning.decision_key("cpu", port, rows, width) == want
             assert tuning.decision_key("cuda", port, rows, width) == want.replace("|cpu|", "|cuda|")
             assert tuning.model_bucket(port, width) == jax_tuning.model_bucket(jax, width)
 
     def test_extended_key_separation(self, models):
         _, std, ext = models
-        assert tuning.decision_key("cuda", std.forest, 1024, 5).endswith("|std")
-        assert tuning.decision_key("cuda", ext.forest, 1024, 5).endswith("|ext")
+        assert tuning.decision_key("cuda", std.forest, 1024, 5).endswith("|std|q16")
+        assert tuning.decision_key("cuda", ext.forest, 1024, 5).endswith("|ext|q16")
         assert "k2" in tuning.model_bucket(ext.forest, 5)
 
 
 class TestEligibility:
     def test_pool_is_walk_then_dense(self, models):
+        """The card pools the two kernels; the CPU adds ``q16`` for forests
+        inside its fences."""
         _, std, ext = models
-        for platform in ("cuda", "cpu"):
-            assert tuning.eligible_strategies(std.forest, platform) == ("walk", "dense")
-            assert tuning.eligible_strategies(ext.forest, platform) == ("walk", "dense")
+        for forest in (std.forest, ext.forest):
+            assert tuning.eligible_strategies(forest, "cuda") == ("walk", "dense")
+            assert tuning.eligible_strategies(forest, "cpu") == ("walk", "dense", "q16")
 
     def test_dense_height_fence(self):
         from isoforest_tpu_torch.ops.dense import DENSE_MAX_HEIGHT
@@ -114,6 +117,7 @@ class TestEligibility:
             forest = forest_from_arrays(np.full((1, m), -1, np.int32), np.zeros((1, m), np.float32),
                                         np.full((1, m), 1, np.int32), device="cpu")
             assert tuning.eligible_strategies(forest, "cuda") == pool
+            assert tuning.eligible_strategies(forest, "cpu") == pool + ("q16",)
 
     def test_ties_go_to_the_walk(self, models, autotune, monkeypatch):
         X, std, _ = models
@@ -126,14 +130,14 @@ class TestResolutionAndParity:
         X, std, ext = models
         for model in (std, ext):
             d1 = _resolve(model, X)
-            assert d1.source == "probe" and set(d1.timings_s) == {"walk", "dense"}
+            assert d1.source == "probe" and set(d1.timings_s) == {"walk", "dense", "q16"}
             d2 = _resolve(model, X)
             assert d2.source == "table" and d2.strategy == d1.strategy
             s_auto = model.score(X, strategy="auto")
             s_win = model.score(X, strategy=d1.strategy)
             assert np.array_equal(s_auto.numpy(), s_win.numpy())
 
-    @pytest.mark.parametrize("winner", ["walk", "dense"])
+    @pytest.mark.parametrize("winner", ["walk", "dense", "q16"])
     def test_auto_scores_equal_the_winners(self, models, autotune, monkeypatch, winner):
         X, _, ext = models
         monkeypatch.setattr(autotuner, "_probe", lambda forest, Xp, n, eligible, cache=None: {
@@ -158,7 +162,7 @@ class TestResolutionAndParity:
         doc = json.loads(autotune.read_text())
         assert doc["schema"] == tuning.SCHEMA_VERSION
         assert doc["entries"][d.key]["strategy"] == d.strategy
-        assert set(doc["entries"][d.key]["timings_s"]) == {"walk", "dense"}
+        assert set(doc["entries"][d.key]["timings_s"]) == {"walk", "dense", "q16"}
         assert doc["entries"][d.key]["probe_rows"] == 512
 
     def test_ttl_expiry_reprobes(self, models, autotune):
@@ -187,7 +191,7 @@ class TestResolutionAndParity:
         assert (d.strategy, d.source) == ("dense", "pin")
         assert np.array_equal(std.score(X).numpy(), std.score(X, strategy="dense").numpy())
 
-    @pytest.mark.parametrize("pin", ["gather", "native", "pallas", "q16"])
+    @pytest.mark.parametrize("pin", ["gather", "native", "pallas", "q4"])
     def test_unknown_pin_takes_env_strategy_unknown_rung(self, models, autotune, monkeypatch, pin):
         X, std, _ = models
         reset_degradations("env_strategy_unknown")
@@ -280,8 +284,8 @@ class TestDecisionTelemetry:
     def test_probe_timings_kept_out_of_the_scoring_series(self, models, autotune):
         X, std, _ = models
         before = {s: (_SCORED_ROWS_TOTAL.value(strategy=s), _SCORING_SECONDS.summary(strategy=s)["count"])
-                  for s in ("walk", "dense")}
+                  for s in ("walk", "dense", "q16")}
         assert _resolve(std, X).source == "probe"
         after = {s: (_SCORED_ROWS_TOTAL.value(strategy=s), _SCORING_SECONDS.summary(strategy=s)["count"])
-                 for s in ("walk", "dense")}
+                 for s in ("walk", "dense", "q16")}
         assert after == before

@@ -162,6 +162,67 @@ def test_quantiles_fed_the_same_scores_are_bitwise(column):
         quantile.quantile_rank_error(t, 7.5, 0.5)
 
 
+def test_subnormal_windows_flush_as_xla_does():
+    """C5: once the refined window's edges turn subnormal, XLA:CPU's
+    float32 steps flush them to zero; the port flushes too, and returns the
+    reference's element (the parent returned 256.0 here)."""
+    s = np.repeat(np.float32([256, 6.322705108303872e16, -0.9999899864196777, 256, -0.0, 3.721737767852442e16,
+                              -0.0]), 3)
+    q = 0.30528659477443704
+    want = jquantile.histogram_quantile(s, q, eps=1e-3)
+    got = quantile.histogram_quantile(torch.from_numpy(s), q, eps=1e-3)
+    assert want == 0.0 and np.signbit(want)
+    assert got == want and np.signbit(got)
+
+
+def _property_draws(seed: int, count: int):
+    """Columns shaped like ``tests/test_properties.py``'s quantile draws:
+    finite float32 in [-1e30, 1e30] with ties, zeros of both signs, powers
+    of two down to FLT_MIN and small integers, repeated 1-6 times, at a
+    uniform q and one of its three error budgets; 60 scores each, so the
+    JAX package compiles its steps once."""
+    rng = np.random.default_rng(seed)
+    for _ in range(count):
+        dup = int(rng.choice([1, 2, 3, 4, 5, 6]))
+        n = 60 // dup
+        kind = rng.integers(0, 4, n)
+        sign = rng.choice([-1.0, 1.0], n)
+        pool = np.select([kind == 0, kind == 1, kind == 2],
+                         [sign * 0.0, sign * 2.0 ** rng.integers(-126, 100, n), sign * rng.integers(0, 300, n)],
+                         sign * 10.0 ** rng.uniform(-30, 30, n))
+        data = np.clip(pool, -1e30, 1e30).astype(np.float32)
+        yield np.repeat(data, dup), float(rng.uniform()), float(rng.choice([1e-3, 0.01, 0.05]))
+
+
+def test_seeded_sweep_returns_the_references_element():
+    """C5: 200 seeded draws; the port returns the reference's element on
+    every one, including draws where the reference itself breaks the rank
+    contract (the port copies it, it does not improve on it). Before the
+    flush, 2 of these draws differed."""
+    for s, q, eps in _property_draws(0, 200):
+        want = jquantile.histogram_quantile(s, q, eps=eps)
+        got = quantile.histogram_quantile(torch.from_numpy(s), q, eps=eps)
+        assert got == want, (s.tolist(), q, eps)
+
+
+@pytest.mark.parametrize("special", [np.nan, np.inf, -np.inf], ids=["nan", "inf", "neg_inf"])
+@pytest.mark.parametrize("q", [0.1, 0.5, 0.95])
+def test_nonfinite_columns_return_the_references_element(special, q):
+    """C6: a NaN bin goes where XLA's float-to-int convert puts it (bin 0,
+    measured on this host), where the parent's cast made it INT64_MIN and
+    ``bincount`` raised. The answers break the contract (q = 0.95 of the
+    +inf column gives 0.1); the port copies them."""
+    from isoforest_tpu.ops.quantile import jnp
+
+    assert int(jnp.asarray(np.float32(np.nan)).astype(jnp.int32)) == 0  # the rule the port writes out
+    s = np.float32([0.1, 0.5, special, 0.7, 0.9])
+    want = jquantile.histogram_quantile(s, q)
+    got = quantile.histogram_quantile(torch.from_numpy(s), q)
+    assert got == want or (np.isnan(got) and np.isnan(want))
+    exact, exact_ref = quantile.exact_quantile(torch.from_numpy(s), q), jquantile.exact_quantile(s, q)
+    assert exact == exact_ref or (np.isnan(exact) and np.isnan(exact_ref))
+
+
 def test_zero_contamination_leaves_the_threshold_unset(mammography):
     model = IsolationForest(num_estimators=8, max_samples=32.0, device="cpu").fit(mammography[0][:500])
     assert model.outlier_score_threshold == -1.0

@@ -14,6 +14,7 @@ scores (fault C3: it was saved through the standard writer and failed).
 from __future__ import annotations
 
 import json
+import logging
 import os
 import pathlib
 import shutil
@@ -301,3 +302,83 @@ def test_extended_estimator_save_load_round_trip(tmp_path):
     assert meta["class"] == persistence.EXTENDED_ESTIMATOR_CLASS == jpersistence.EXTENDED_ESTIMATOR_CLASS
     with pytest.raises(ValueError, match="metadata class mismatch"):
         IsolationForest.load(str(tmp_path / "e"))
+
+
+# -- the scoringRepresentation extra (fault C7) ---------------------------------
+
+
+def _metadata(path) -> dict:
+    return json.loads((pathlib.Path(path) / "metadata" / "part-00000").read_text())
+
+
+@pytest.mark.parametrize("fixture", [FIXTURE, EIF_FIXTURE], ids=["std", "eif"])
+def test_q16_representation_round_trips_from_the_jax_package(fixture, tmp_path):
+    """C7: a q16 model the JAX package saves loads as q16 in the port, and
+    the port's save keeps it for the JAX package (the parent dropped it)."""
+    ref = jpersistence.load_model(str(fixture)).set_scoring_representation("q16")
+    ref.save(str(tmp_path / "jax"))
+    port = load_model(str(tmp_path / "jax"), device="cpu")
+    assert port.scoring_representation == "q16"
+    port.save(str(tmp_path / "port"))
+    assert _metadata(tmp_path / "port")["scoringRepresentation"] == "q16"
+    assert jpersistence.load_model(str(tmp_path / "port")).scoring_representation == "q16"
+
+
+@pytest.mark.parametrize("fixture", [FIXTURE, EIF_FIXTURE], ids=["std", "eif"])
+def test_q16_representation_round_trips_from_the_port(fixture, tmp_path):
+    port = load_model(str(fixture), device="cpu").set_scoring_representation("q16")
+    port.save(str(tmp_path / "port"))
+    ref = jpersistence.load_model(str(tmp_path / "port"))
+    assert ref.scoring_representation == "q16"
+    ref.save(str(tmp_path / "jax"))
+    back = load_model(str(tmp_path / "jax"), device="cpu")
+    assert back.scoring_representation == "q16"
+    assert ("q16", torch.device("cpu")) in back._cache  # the plane is built at load
+
+
+def test_default_f32_writes_no_extra(fitted, tmp_path):
+    _, model = fitted
+    model.save(str(tmp_path / "f"))
+    assert "scoringRepresentation" not in _metadata(tmp_path / "f")
+    assert load_model(str(tmp_path / "f"), device="cpu").scoring_representation == "f32"
+    assert jpersistence.load_model(str(tmp_path / "f")).scoring_representation == "f32"
+
+
+@pytest.mark.parametrize("value", ["f32", "q4"])
+def test_a_written_f32_or_unknown_value_loads_as_f32(fitted, tmp_path, caplog, value):
+    """An explicit "f32" loads silently; an unknown value logs a warning and
+    stays "f32", scores unchanged (``tests/test_persistence.py``'s rule)."""
+    X, model = fitted
+    path = tmp_path / "u"
+    model.save(str(path))
+    meta = _metadata(path)
+    meta["scoringRepresentation"] = value
+    (path / "metadata" / "part-00000").write_text(json.dumps(meta))
+    (path / "_MANIFEST.json").unlink()  # the edit invalidates the manifest
+    with caplog.at_level(logging.WARNING, logger="isoforest_tpu_torch"):
+        back = load_model(str(path), device="cpu")
+    assert back.scoring_representation == "f32"
+    warned = [r for r in caplog.records if "scoringRepresentation" in r.getMessage()]
+    assert len(warned) == (value != "f32")
+    assert jpersistence.load_model(str(path)).scoring_representation == "f32"
+    np.testing.assert_array_equal(back.score(X[:64]).numpy(), model.score(X[:64]).numpy())
+
+
+def test_q16_on_a_forest_outside_the_fences_loads_as_f32(tmp_path, caplog):
+    """A q16 extra over a forest the plane cannot hold (edited on disk, or
+    salvaged) is a preference the load drops, with a warning."""
+    rng = np.random.default_rng(4)
+    feature, threshold, num_instances = random_heap_forest(rng, trees=400, height=8, features=4, split_p=0.99)
+    threshold = rng.normal(size=threshold.shape).astype(np.float32)  # > 65,535 distinct thresholds
+    from isoforest_tpu_torch.io.interop import model_from_arrays
+
+    model = model_from_arrays(feature, threshold, num_instances, num_samples=256, num_features=4,
+                              total_num_features=4, device="cpu")
+    model.scoring_representation = "q16"  # as an edited directory would carry it
+    model.save(str(tmp_path / "m"))
+    assert _metadata(tmp_path / "m")["scoringRepresentation"] == "q16"
+    with caplog.at_level(logging.WARNING, logger="isoforest_tpu_torch"):
+        back = load_model(str(tmp_path / "m"), device="cpu")
+    assert back.scoring_representation == "f32"
+    assert any("distinct thresholds" in r.getMessage() for r in caplog.records)
+    assert jpersistence.load_model(str(tmp_path / "m")).scoring_representation == "f32"
