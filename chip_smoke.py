@@ -195,6 +195,28 @@ Then the quantized (q16) plane, in torch ops (no kernel of its own):
     rung onto ``walk_sum`` (counted), with the walk's scores, raises under
     ``strict=True`` and refuses the representation.
 
+Then the out-of-core data plane, the kernels run chunk by chunk from disk:
+
+29. out_of_core: A, the documented deployment (``bench.py --out-of-core``:
+    KDDCup99-HTTP-like rows at F = 3, 100 trees, ``maxSamples`` 256,
+    contamination 0.004) at 20,000,000 rows (cut from 100M for time) in
+    five 4,000,000-row ``.npy`` shards, written one at a time:
+    ``fit_source`` on the card, equal tensor for tensor to
+    ``fit_from_sample`` of the same ``StreamedBagger`` sample (the sampler's
+    host pass and that fit timed apart); ``score_source`` with ``walk``,
+    equal exactly to ``model.score`` of each shard's rows, and with
+    ``auto`` (what it resolved the 65,536-row bucket to); a run killed after
+    shard 2 (``kill_score_after_shard``) and resumed, byte-equal to the clean
+    sink; rows/s, seconds a shard, peak RSS, launches, and torch.profiler
+    around one shard. B, every kernel through ``score_source``: the 1M rows
+    in four uneven ``.npy`` shards and the mammography rows in a labeled
+    ``.csv`` and ``.avro`` shard through both fixtures with ``walk`` and
+    ``dense`` (K1-K4), and 65,536 rows of a seeded F = k = 274 forest in
+    two shards with ``dense`` (K5): each sink equal to the in-memory scores
+    exactly, each kernel launched once a chunk, the mammography sinks within
+    2e-6 of the committed JAX scores; a parquet shard read where ``pyarrow``
+    imports, else refused with ``SourceFormatError``.
+
 Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
 with its launches in the 1M-row fit and ``ext_walk_sum`` with its launches
 in the 1M-row EIF fit, ``fit_launches``), the ``nvidia-smi`` name and
@@ -1731,6 +1753,279 @@ def q16_phases(dev, X_m, X_big) -> None:
     emit(out)
 
 
+# The documented out-of-core deployment (bench.py --out-of-core): KDDCup99-
+# HTTP-like rows at F = 3 in .npy shards of 4,000,000 rows; 20,000,000 rows
+# here, cut from its 100,000,000 for the smoke's time
+OOC_ROWS = 20_000_000
+OOC_SHARD_ROWS = 4_000_000
+
+
+def kdd_http_like_rows(rng, n: int):
+    """KDDCup99-HTTP-like rows, ``f32[n, 3]`` (log-scaled duration, source
+    and destination bytes): a Gaussian mixture with 0.4% of the rows in a
+    dense attack cluster, shuffled."""
+    import numpy as np
+
+    n_out = int(n * 0.004)
+    normal = rng.multivariate_normal([0.0, 5.2, 8.0], [[0.6, 0.1, 0.0], [0.1, 1.2, 0.3], [0.0, 0.3, 1.5]],
+                                     size=n - n_out)
+    attacks = rng.multivariate_normal([4.5, 9.5, 2.0], np.eye(3), size=n_out)
+    X = np.vstack([normal, attacks]).astype(np.float32)
+    return X[rng.permutation(n)]
+
+
+def out_of_core_phases(dev, X_m, y_m, X_big) -> None:
+    """Phase 29: the out-of-core data plane. A: the documented deployment
+    (``fit_source`` and ``score_source`` of 20M KDDCup99-HTTP-like rows in
+    4M-row shards, kill and resume); B: every kernel through
+    ``score_source``, each sink equal to the in-memory scores exactly.
+    Every ``score_source`` call is driven with the launch counters at 0 just
+    before and read just after."""
+    import resource
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import IsolationForest, load_model, tuning
+    from isoforest_tpu_torch.io import outofcore, source
+    from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
+    from isoforest_tpu_torch.io.source import SourceFormatError, open_source
+    from isoforest_tpu_torch.models.extended import ExtendedIsolationForestModel
+    from isoforest_tpu_torch.ops import dense, ext_dense, ext_path
+    from isoforest_tpu_torch.ops.bagging import StreamedBagger
+    from isoforest_tpu_torch.resilience import faults
+    from isoforest_tpu_torch.testing import random_extended_forest, rows
+    from isoforest_tpu_torch.utils.params import ExtendedIsolationForestParams
+
+    def zero_counts() -> None:
+        for name in ext_path.launches:
+            ext_path.launches[name] = 0
+        dense.dense_mean.launches = 0
+        ext_dense.ext_dense_mean.launches = 0
+
+    def nonzero_counts() -> dict:
+        counts = {**ext_path.launches, "dense_mean": dense.dense_mean.launches,
+                  "ext_dense_mean": ext_dense.ext_dense_mean.launches}
+        return {k: v for k, v in counts.items() if v}
+
+    def rss_bytes() -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def peak_rss_of(fn):
+        """``(fn(), seconds, the largest RSS in bytes seen during the
+        call)``, sampled every 5 ms on a thread: the kernel's high-water
+        mark cannot be reset where ``/proc/self/clear_refs`` is read-only."""
+        import threading
+
+        peak, done = [rss_bytes()], threading.Event()
+
+        def sample() -> None:
+            while not done.wait(0.005):
+                peak[0] = max(peak[0], rss_bytes())
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        try:
+            result, secs = synced(fn)
+        finally:
+            done.set()
+            sampler.join()
+        return result, secs, max(peak[0], rss_bytes())
+
+    def scored(model, src, sink, strategy: str, **kw):
+        """``score_source`` with the launch counters at 0 just before and
+        read just after: ``(summary, seconds, launches, scores, peak RSS
+        bytes during the call)``."""
+        zero_counts()
+        summary, secs, peak = peak_rss_of(lambda: outofcore.score_source(model, src, str(sink), strategy=strategy,
+                                                                        **kw))
+        launches = nonzero_counts()
+        return summary, secs, launches, outofcore.read_scores(str(sink), num_shards=src.num_shards), peak
+
+    def in_memory(model, src, strategy: str):
+        """``model.score`` of each shard's rows in one call, concatenated."""
+        whole = max(src.shard_rows())
+        return np.concatenate([model.score(c.X, strategy=strategy).cpu().numpy()
+                               for c in src.iter_chunks(chunk_rows=whole)])
+
+    def part_bytes(sink) -> dict:
+        return {str(p.relative_to(sink)): p.read_bytes() for p in sorted(pathlib.Path(sink).glob("part-*/*"))}
+
+    def chunks_of(src) -> int:
+        return sum(-(-r // source.DEFAULT_CHUNK_ROWS) for r in src.shard_rows())
+
+    t_phase = time.perf_counter()
+    rss_start = rss_bytes()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="out_of_core_", dir=build))
+    out = {"phase": "out_of_core"}
+    try:
+        # A. the documented deployment, written one shard at a time
+        src_dir = tmp / "kdd_http"
+        src_dir.mkdir()
+        t0 = time.perf_counter()
+        for i in range(OOC_ROWS // OOC_SHARD_ROWS):
+            rng = np.random.default_rng(SEED + 100 + i)
+            source.write_npy_shard(str(src_dir / f"shard-{i:05d}.npy"), kdd_http_like_rows(rng, OOC_SHARD_ROWS))
+        generate_s = time.perf_counter() - t0
+        src = open_source(str(src_dir))
+        require(src.total_rows() == OOC_ROWS and src.num_features() == 3, f"source {src.shard_rows()}")
+
+        def estimator():
+            return IsolationForest(num_estimators=100, max_samples=256.0, contamination=0.004, random_seed=1)
+
+        # the sampler's host pass alone, then the fit of its sample
+        t0 = time.perf_counter()
+        bagger = StreamedBagger(1, 100, 256)
+        for chunk in src.iter_chunks():
+            bagger.consume(chunk.X)
+        sample = bagger.finalize()
+        sample_s = time.perf_counter() - t0
+        ref, from_sample_s = synced(lambda: estimator().fit_from_sample(
+            sample.X, sample.bag, sample_sha256=sample.sha256, source_rows=sample.total_rows))
+        zero_counts()
+        rss_before_fit = rss_bytes()
+        model, fit_source_s, fit_peak_rss = peak_rss_of(lambda: estimator().fit_source(src))
+        fit_launches = nonzero_counts()
+        require(model.device.type == "cuda", f"fit_source fitted on {model.device}")
+        require(fit_launches.get("walk_sum", 0) > 0, f"fit_source's threshold pass launched {fit_launches}")
+        require(all(torch.equal(a, b) for a, b in zip(model.forest, ref.forest))
+                and model.outlier_score_threshold == ref.outlier_score_threshold,
+                "fit_source differs from fit_from_sample of the same sample")
+
+        # score_source through the walk kernel, against the in-memory scores
+        sink = tmp / "sink_walk"
+        rss_before_score = rss_bytes()
+        summary, score_s, score_launches, got, score_peak_rss = scored(model, src, sink, "walk")
+        require(summary["rows"] == OOC_ROWS and summary["sealed"] == src.num_shards, f"summary {summary}")
+        require(score_launches.get("walk_sum", 0) == chunks_of(src), f"score_source launched {score_launches}")
+        require(got.shape == (OOC_ROWS,) and np.isfinite(got).all() and ((got > 0) & (got <= 1)).all(),
+                "bad out-of-core scores")
+        require(np.array_equal(got, in_memory(model, src, "walk")), "the walk sink differs from model.score")
+        outlier_share = float((got >= model.outlier_score_threshold).mean())
+
+        # auto: each 65,536-row chunk keys its own bucket
+        _, auto_s, auto_launches, got_auto, _ = scored(model, src, tmp / "sink_auto", "auto")
+        decision = tuning.resolve_decision(model.forest, next(src.iter_chunks()).X, model.num_samples,
+                                           cache=model._cache)
+        auto_gap = float(np.abs(got_auto - got).max())
+        require(auto_gap <= 2e-6, f"the auto sink is {auto_gap} from the walk's")
+
+        # killed after shard 2, then resumed: byte-equal to the clean sink
+        killed = tmp / "sink_killed"
+        try:
+            with faults.inject(kill_score_after_shard=2):
+                outofcore.score_source(model, src, str(killed), strategy="walk")
+        except faults.FaultInjectedError:
+            pass
+        else:
+            fail("kill_score_after_shard=2 did not fire")
+        sealed_at_kill = sorted(p.name for p in killed.glob("part-*"))
+        resumed, resume_s = synced(lambda: outofcore.score_source(model, src, str(killed), strategy="walk",
+                                                                   resume=True))
+        require(sealed_at_kill == ["part-00000", "part-00001", "part-00002"]
+                and (resumed["skipped"], resumed["sealed"]) == (3, 2), f"resume {sealed_at_kill} {resumed}")
+        require(part_bytes(killed) == part_bytes(sink), "the resumed sink is not byte-equal to the clean one")
+
+        # one shard's score_source under torch.profiler: host against device time
+        one = open_source(str(src_dir / "shard-00000.npy"))
+        profiled = iter(range(2))
+        prof = profile_call(lambda: outofcore.score_source(model, one, str(tmp / f"sink_prof_{next(profiled)}"),
+                                                           strategy="walk"), host_top=8)
+        out["deployment"] = {
+            "rows": OOC_ROWS, "features": 3, "shards": src.num_shards, "shard_rows": OOC_SHARD_ROWS,
+            "source_bytes": sum(s.size_bytes for s in src.shards), "generate_s": generate_s,
+            "sample_distinct_rows": int(sample.X.shape[0]), "sampler_s": sample_s,
+            "sampler_rows_per_s": OOC_ROWS / sample_s, "fit_from_sample_s": from_sample_s,
+            "fit_source_s": fit_source_s, "fit_source_rows_per_s": OOC_ROWS / fit_source_s,
+            "fit_source_launches": fit_launches, "threshold": model.outlier_score_threshold,
+            "score_source_s": score_s, "score_rows_per_s": OOC_ROWS / score_s,
+            "summary_rows_per_s": summary["rowsPerSecond"], "shard_seconds_mean": summary["shardSecondsMean"],
+            "score_source_launches": score_launches, "chunks": chunks_of(src), "outlier_share": outlier_share,
+            "auto": {"s": auto_s, "launches": auto_launches, "resolved_65536": decision.strategy,
+                     "source": decision.source, "max_abs_vs_walk": auto_gap},
+            "resume": {"sealed_at_kill": len(sealed_at_kill), "resume_s": resume_s, "byte_equal": True},
+            "profile_one_shard": prof,
+            "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "rss_start_bytes": rss_start, "rss_end_bytes": rss_bytes(),
+            "fit_source_rss_before_bytes": rss_before_fit, "fit_source_peak_rss_sampled_bytes": fit_peak_rss,
+            "score_source_rss_before_bytes": rss_before_score, "score_source_peak_rss_sampled_bytes": score_peak_rss,
+        }
+        shutil.rmtree(src_dir)
+
+        # B. every kernel through score_source
+        big_dir, labeled_dir, wide_dir = tmp / "mammography_1m", tmp / "mammography_labeled", tmp / "high_dim"
+        for d in (big_dir, labeled_dir, wide_dir):
+            d.mkdir()
+        n = len(X_big)
+        bounds = (0, n // 7, n * 2 // 5, n * 7 // 9, n)
+        for i in range(4):
+            source.write_npy_shard(str(big_dir / f"part-{i}.npy"), X_big[bounds[i] : bounds[i + 1]])
+        source.write_csv_shard(str(labeled_dir / "a.csv"), X_m, y_m)
+        source.write_avro_shard(str(labeled_dir / "b.avro"), X_m, y_m)
+        big, labeled = open_source(str(big_dir)), open_source(str(labeled_dir), labeled=True)
+        X_l, y_l = labeled.read_all()
+        require(np.array_equal(X_l, np.concatenate([X_m, X_m])) and np.array_equal(y_l, np.concatenate([y_m, y_m])),
+                "the labeled csv and avro shards do not read back")
+        std, eif = load_model(str(FIXTURE / "model")), load_model(str(EIF_FIXTURE / "model"))
+        cases = [("standard", std, "walk", "walk_sum", FIXTURE / "jax_scores.npy"),
+                 ("standard", std, "dense", "dense_mean", FIXTURE / "jax_scores.npy"),
+                 ("extended", eif, "walk", "ext_walk_sum", EIF_FIXTURE / "jax_walk_scores.npy"),
+                 ("extended", eif, "dense", "ext_sparse_mean", EIF_FIXTURE / "jax_pallas_scores.npy")]
+        kernels = {}
+        for kind, m, strategy, kernel, committed in cases:
+            for name, s in (("1m_npy", big), ("labeled_csv_avro", labeled)):
+                summary, secs, launches, got, _ = scored(m, s, tmp / f"sink_{kind}_{strategy}_{name}", strategy)
+                require(launches.get(kernel, 0) == chunks_of(s), f"{kind} {strategy} {name}: launched {launches}")
+                require(np.array_equal(got, in_memory(m, s, strategy)), f"{kind} {strategy} {name}: sink differs")
+                row = {"rows": summary["rows"], "s": secs, "launches": launches}
+                if name == "labeled_csv_avro":
+                    jax = np.load(committed)[: len(X_m)]
+                    row["vs_committed_jax_max_abs"] = float(np.abs(got - np.concatenate([jax, jax])).max())
+                    require(row["vs_committed_jax_max_abs"] <= 2e-6, f"{kind} {strategy}: {row}")
+                kernels[f"{kind}_{strategy}_{name}"] = row
+        # K5: a seeded fully extended forest at F = k = 274, 65,536 rows in 2 shards
+        rng5 = np.random.default_rng(SEED + 29)
+        f5 = extended_forest_from_arrays(*random_extended_forest(rng5, 100, 8, 274, 274, split_p=1.0))
+        wide = ExtendedIsolationForestModel(forest=f5, params=ExtendedIsolationForestParams(), num_samples=256,
+                                            num_features=274, extension_level=273, total_num_features=274)
+        X5 = rows(rng5, HIGH_DIM_ROWS, 274)
+        source.write_npy_shard(str(wide_dir / "part-0.npy"), X5[: HIGH_DIM_ROWS * 15 // 32])
+        source.write_npy_shard(str(wide_dir / "part-1.npy"), X5[HIGH_DIM_ROWS * 15 // 32 :])
+        wide_src = open_source(str(wide_dir))
+        summary, secs, launches, got, _ = scored(wide, wide_src, tmp / "sink_high_dim", "dense")
+        require(launches.get("ext_dense_mean", 0) == chunks_of(wide_src), f"high-dim dense launched {launches}")
+        require(np.array_equal(got, in_memory(wide, wide_src, "dense")), "the high-dim dense sink differs")
+        kernels["high_dim_dense"] = {"rows": summary["rows"], "s": secs, "launches": launches}
+        out["kernels_through_score_source"] = kernels
+
+        # parquet: read where pyarrow imports, else refused by name
+        pq_path = tmp / "rows.parquet"
+        try:
+            import pyarrow as pa
+            import pyarrow.parquet as pq
+        except ImportError:
+            pq_path.write_bytes(b"PAR1")
+            try:
+                open_source(str(pq_path)).total_rows()
+            except SourceFormatError as exc:
+                out["parquet"] = {"pyarrow": False, "refused": str(exc)[:80]}
+            else:
+                fail("a parquet shard without pyarrow was not refused")
+        else:
+            pq.write_table(pa.table({f"c{j}": X_m[:, j] for j in range(X_m.shape[1])}), str(pq_path))
+            require(np.array_equal(open_source(str(pq_path)).read_all()[0], X_m), "the parquet shard differs")
+            out["parquet"] = {"pyarrow": True, "version": pa.__version__}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+
+
 def main() -> int:
     if not (ROOT / "isoforest_tpu_torch").is_dir() or not FIXTURE.is_dir() or not EIF_FIXTURE.is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -1973,6 +2268,7 @@ def main() -> int:
     model_phases(dev, X_m, X_big)
     executor_phases(dev, X_m, X_big)
     q16_phases(dev, X_m, X_big)
+    out_of_core_phases(dev, X_m, y_m, X_big)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",

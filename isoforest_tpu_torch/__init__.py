@@ -10,7 +10,7 @@ O(h) walk kernels (``walk_sum`` and ``ext_walk_sum`` of
 run on the card unless the caller names another device; ``device="cpu"``
 runs the kernels' plain PyTorch versions.
 
-    from isoforest_tpu_torch import ExtendedIsolationForest, IsolationForest, load_model
+    from isoforest_tpu_torch import ExtendedIsolationForest, IsolationForest, io, load_model
     model = IsolationForest(contamination=0.02).fit(X)  # or ExtendedIsolationForest(...)
     model = IsolationForest(contamination=0.02).fit(X, checkpoint_dir="ckpt")  # resumable
     model.save("path/to/model")  # with its drift baseline, _BASELINE.json
@@ -18,14 +18,18 @@ runs the kernels' plain PyTorch versions.
     monitor = served.enable_monitoring()  # every score() now folds into it
     scores = served.score(X, timeout_s=5.0)  # host rows stream through pinned buffers
     print(monitor.report())  # score and feature PSI, KS, alerts
+    big = IsolationForest(max_samples=256.0, random_seed=1).fit_source("shards/")  # out of core: .npy/.csv/.avro
+    io.outofcore.score_source(big, "shards/", "scores/", strategy="walk")  # sealed per shard, resume=True
 
 ``strategy="auto"`` (the default) is resolved by the measured autotuner
 (:mod:`.tuning`); rows on the host reach the card chunk by chunk through the
 streaming executor (:mod:`.ops.streaming`); :mod:`.telemetry` holds spans,
-metrics and events, :mod:`.resilience` the watchdog and the fault seams.
+metrics and events, :mod:`.resilience` the watchdog and the fault seams,
+:mod:`.io` model files and the out-of-core data plane (sharded sources,
+``score_source``, ``read_scores``).
 """
 
-from . import resilience, telemetry, tuning
+from . import io, resilience, telemetry, tuning
 from .io import persistence
 from .models import ExtendedIsolationForest, ExtendedIsolationForestModel, IsolationForest, IsolationForestModel
 from .ops.traversal import score_matrix
@@ -44,4 +48,4 @@ def load_model(path: str, device=None, require_success: bool = True, verify="aut
 
 
 __all__ = ["ExtendedIsolationForest", "ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel",
-           "load_model", "resilience", "score_matrix", "telemetry", "tuning"]
+           "io", "load_model", "resilience", "score_matrix", "telemetry", "tuning"]

@@ -25,6 +25,7 @@ from .isolation_forest import (
     IsolationForestModel,
     _fit_from_sample_impl,
     _fit_impl,
+    _fit_source_impl,
     _new_uid,
     _ParamSetters,
 )
@@ -52,12 +53,21 @@ class ExtendedIsolationForest(_ParamSetters):
 
     def fit_from_sample(self, X_sample, bag, nonfinite: str = "warn", checkpoint_dir: Optional[str] = None,
                         checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,
-                        block_callback=None) -> "ExtendedIsolationForestModel":
+                        block_callback=None, sample_sha256: Optional[str] = None,
+                        source_rows: Optional[int] = None) -> "ExtendedIsolationForestModel":
         """Fit from a materialised sample and its bags, as
         :meth:`IsolationForest.fit_from_sample`."""
         return _fit_from_sample_impl(self, X_sample, bag, extended=True, nonfinite=nonfinite,
                                      checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback),
-                                     baseline=baseline)
+                                     baseline=baseline, sample_sha256=sample_sha256, source_rows=source_rows)
+
+    def fit_source(self, source, chunk_rows: Optional[int] = None, checkpoint_dir: Optional[str] = None,
+                   checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,
+                   nonfinite: str = "warn", block_callback=None) -> "ExtendedIsolationForestModel":
+        """Out-of-core fit of a sharded source, as :meth:`IsolationForest.fit_source`."""
+        return _fit_source_impl(self, source, extended=True, chunk_rows=chunk_rows, nonfinite=nonfinite,
+                                checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback),
+                                baseline=baseline)
 
     def save(self, path: str, overwrite: bool = False) -> None:
         """Save the params (metadata only) under the reference's estimator class."""

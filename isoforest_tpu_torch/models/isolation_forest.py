@@ -22,6 +22,11 @@ threshold, ``fit`` captures the drift baseline (``baseline=True``, unless
 training rows, scored through the walk kernel; ``enable_monitoring`` then
 folds every scored batch into a :class:`~..telemetry.monitor.ScoreMonitor`.
 
+``fit_source`` fits a sharded on-disk source out of core: one pass through
+the streamed sampler on the host (:class:`~..ops.bagging.StreamedBagger`),
+then ``fit_from_sample`` of its sample; the sample, and so the forest, is
+the JAX package's bit for bit whatever the chunking.
+
 ``fit``/``transform`` take an ``[N, F]`` tensor or array, or a pandas
 DataFrame with a vector-valued features column; ``transform`` of a frame
 returns the frame with ``outlierScore`` and ``predictedLabel`` appended
@@ -44,11 +49,26 @@ from ..ops.ext_growth import grow_extended_forest
 from ..ops.quantile import contamination_threshold, observed_contamination
 from ..ops.traversal import score_matrix
 from ..ops.tree_growth import StandardForest, grow_forest
+from ..telemetry.metrics import counter as _telemetry_counter
 from ..telemetry.spans import span as _telemetry_span
 from ..utils.device import resolve_device
 from ..utils.math import height_limit
 from ..utils.params import IsolationForestParams, resolve_extension_level, resolve_params
 from ..utils.validation import UNKNOWN_TOTAL_NUM_FEATURES, extract_features, logger
+
+
+# Fit volume, by model family ("standard" or "extended"), counted once a
+# forest is grown, as the JAX package counts it
+_FIT_ROWS_TOTAL = _telemetry_counter(
+    "isoforest_fit_rows_total",
+    "Training rows consumed by fit(), by model family",
+    labelnames=("model",),
+)
+_FIT_TREES_TOTAL = _telemetry_counter(
+    "isoforest_fit_trees_total",
+    "Trees grown by fit(), by model family",
+    labelnames=("model",),
+)
 
 
 def _new_uid(prefix: str) -> str:
@@ -124,12 +144,13 @@ def _grow_block(tree_keys, X: torch.Tensor, bag, fidx, height: int, extension_le
     return grow_extended_forest(tree_keys, X, bag, fidx, height, extension_level)
 
 
-def _grow(key, X: torch.Tensor, *, params, resolved, height: int, extension_level, checkpoint, bag=None):
+def _grow(key, X: torch.Tensor, *, params, resolved, height: int, extension_level, checkpoint, bag=None,
+          sampler_sha256=None):
     """The forest of either estimator and its checkpoint: the ensemble's
     draws from ``key`` (``bag`` replaces the bagging draw of a fit from a
     sample), then growth in one call, or in sealed blocks when
     ``checkpoint = (dir, every, resume, callback)`` names a directory
-    (:func:`_blockwise_grow`)."""
+    (:func:`_blockwise_grow`; ``sampler_sha256`` joins its fingerprint)."""
     draws = ensemble_draws(key, X, num_samples=resolved.num_samples, num_trees=params.num_estimators,
                            bootstrap=params.bootstrap, num_features=resolved.num_features, bag=bag)
     checkpoint_dir, checkpoint_every, resume, block_callback = checkpoint
@@ -137,11 +158,12 @@ def _grow(key, X: torch.Tensor, *, params, resolved, height: int, extension_leve
         tree_keys, bag, fidx = draws
         return _grow_block(tree_keys, X, bag, fidx, height, extension_level), None
     return _blockwise_grow(checkpoint_dir, resume, checkpoint_every, X, draws, params=params, resolved=resolved,
-                           height=height, extension_level=extension_level, on_block=block_callback)
+                           height=height, extension_level=extension_level, on_block=block_callback,
+                           sampler_sha256=sampler_sha256)
 
 
 def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, X: torch.Tensor, draws, *, params,
-                    resolved, height: int, extension_level=None, on_block=None):
+                    resolved, height: int, extension_level=None, on_block=None, sampler_sha256=None):
     """Growth of either estimator in checkpointed blocks of trees:
     ``(forest, FitCheckpoint)``.
 
@@ -150,7 +172,8 @@ def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, X: torc
     block is grown on ``X``'s device, copied to the host and sealed; the
     fingerprint hashes the host copy of ``X``, one device-to-host copy per
     fit. ``on_block(index, start, stop, resumed)`` runs after each block is
-    durable.
+    durable. ``sampler_sha256`` (an out-of-core fit's sample hash) joins the
+    fingerprint.
     """
     from ..ops.ext_growth import ExtendedForest
     from ..resilience import checkpoint as ckpt
@@ -173,6 +196,7 @@ def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, X: torc
         block_trees=block_trees,
         data_sha256=ckpt.data_fingerprint(X.cpu().numpy()),
         extension_level=extension_level,
+        sampler_sha256=sampler_sha256,
     )
     state = ckpt.FitCheckpoint(checkpoint_dir, fingerprint)
     state.begin(resume=resume)
@@ -274,17 +298,35 @@ class IsolationForest(_ParamSetters):
 
     def fit_from_sample(self, X_sample, bag, nonfinite: str = "warn", checkpoint_dir: Optional[str] = None,
                         checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,
-                        block_callback=None) -> "IsolationForestModel":
+                        block_callback=None, sample_sha256: Optional[str] = None,
+                        source_rows: Optional[int] = None) -> "IsolationForestModel":
         """Fit from a materialised sample: ``X_sample [U, F]`` and the bags
-        ``[numEstimators, numSamples]`` that index it. The bag replaces the
+        ``[numEstimators, numSamples]`` that index it (what
+        :class:`~..ops.bagging.StreamedBagger` gives). The bag replaces the
         bagging draw; feature subsets and growth keys come from the same
         ``(k_bag, k_feat, k_grow)`` split as :meth:`fit`, so two fits of one
         sample are bitwise equal. ``maxSamples`` must be a count; the
         threshold and the baseline come from the sample's own rows. The
-        checkpoint and baseline knobs are :meth:`fit`'s."""
+        checkpoint and baseline knobs are :meth:`fit`'s; ``sample_sha256``
+        joins a checkpoint's fingerprint, and ``source_rows`` (the rows the
+        sample was drawn from) is what the fit counts as its rows."""
         return _fit_from_sample_impl(self, X_sample, bag, extended=False, nonfinite=nonfinite,
                                      checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback),
-                                     baseline=baseline)
+                                     baseline=baseline, sample_sha256=sample_sha256, source_rows=source_rows)
+
+    def fit_source(self, source, chunk_rows: Optional[int] = None, checkpoint_dir: Optional[str] = None,
+                   checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,
+                   nonfinite: str = "warn", block_callback=None) -> "IsolationForestModel":
+        """Out-of-core fit of a sharded on-disk source (a directory, glob or
+        file, or a :class:`~..io.source.ShardedSource`): one pass of
+        ``chunk_rows``-row chunks through the streamed sampler on the host,
+        then :meth:`fit_from_sample` of its sample on the estimator's
+        device. The forest is the same for any ``chunk_rows`` and shard
+        layout, and the JAX package's for the same source and seed.
+        ``maxSamples`` must be a count."""
+        return _fit_source_impl(self, source, extended=False, chunk_rows=chunk_rows, nonfinite=nonfinite,
+                                checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback),
+                                baseline=baseline)
 
     def save(self, path: str, overwrite: bool = False) -> None:
         """Save the params (metadata only, IsolationForest.scala:114-125)."""
@@ -300,15 +342,16 @@ class IsolationForest(_ParamSetters):
         return cls(params=params, uid=uid, device=device)
 
 
-def _grow_and_threshold(p, X, resolved, extended: bool, key, checkpoint, baseline: bool,
-                        bag=None) -> "IsolationForestModel":
-    """The model of either estimator: grow its forest (:func:`_grow`), then
-    threshold it on ``X`` and capture its baseline."""
+def _grow_and_threshold(p, X, resolved, extended: bool, key, checkpoint, baseline: bool, counted_rows: int,
+                        bag=None, sampler_sha256=None) -> "IsolationForestModel":
+    """The model of either estimator: grow its forest (:func:`_grow`), count
+    ``counted_rows`` and the trees, then threshold it on ``X`` and capture
+    its baseline."""
     h = height_limit(resolved.num_samples)
 
     def grow(level):
         return _grow(key, X, params=p, resolved=resolved, height=h, extension_level=level, checkpoint=checkpoint,
-                     bag=bag)
+                     bag=bag, sampler_sha256=sampler_sha256)
 
     common = dict(params=p, num_samples=resolved.num_samples, num_features=resolved.num_features,
                   total_num_features=int(X.shape[1]))
@@ -322,6 +365,9 @@ def _grow_and_threshold(p, X, resolved, extended: bool, key, checkpoint, baselin
     else:
         forest, fit_checkpoint = grow(None)
         model = IsolationForestModel(forest=forest, **common)
+    kind = "extended" if extended else "standard"
+    _FIT_ROWS_TOTAL.inc(counted_rows, model=kind)
+    _FIT_TREES_TOTAL.inc(p.num_estimators, model=kind)
     model.fit_checkpoint = fit_checkpoint
     model.finalize_scoring()
     _compute_and_set_threshold(model, X)
@@ -349,14 +395,28 @@ def _fit_impl(est, data, *, extended: bool, nonfinite: str, subsample_trees, che
         "resolved params: numSamples=%d numFeatures=%d (of %d rows x %d features)",
         resolved.num_samples, resolved.num_features, total_rows, total_feats,
     )
-    return _grow_and_threshold(p, X, resolved, extended, _seed_key(p, dev), checkpoint, baseline)
+    return _grow_and_threshold(p, X, resolved, extended, _seed_key(p, dev), checkpoint, baseline, total_rows)
 
 
-def _fit_from_sample_impl(est, X_sample, bag, *, extended: bool, nonfinite: str, checkpoint,
-                         baseline: bool) -> "IsolationForestModel":
+def _require_absolute_max_samples(params) -> int:
+    """``maxSamples`` as a count: a fit from a sample or a stream cannot
+    resolve a fraction (the stream's length is unknown until its end)."""
+    if params.max_samples <= 1.0:
+        raise ValueError(
+            f"out-of-core fit requires an absolute maxSamples (> 1), got "
+            f"fraction {params.max_samples!r}; set max_samples to the "
+            "per-tree sample count (e.g. 256)"
+        )
+    return int(math.floor(params.max_samples))
+
+
+def _fit_from_sample_impl(est, X_sample, bag, *, extended: bool, nonfinite: str, checkpoint, baseline: bool,
+                          sample_sha256=None, source_rows=None) -> "IsolationForestModel":
     """``fit_from_sample`` of both estimators: the given bag replaces the
     bagging draw; feature subsets and growth keys come from the fit's key
-    (checkpointed as :func:`_fit_impl`)."""
+    (checkpointed as :func:`_fit_impl`, with ``sample_sha256`` in the
+    fingerprint). The fit counts ``source_rows`` rows when given, else the
+    sample's."""
     dev = resolve_device(est.device)
     p = est.params
     X, _ = extract_features(X_sample, p.features_col, nonfinite=nonfinite, device=dev)
@@ -367,11 +427,7 @@ def _fit_from_sample_impl(est, X_sample, bag, *, extended: bool, nonfinite: str,
         raise ValueError(f"bag must be [trees, samples], got shape {tuple(bag.shape)}")
     if bag.shape[0] != p.num_estimators:
         raise ValueError(f"bag has {bag.shape[0]} trees but numEstimators={p.num_estimators}")
-    if p.max_samples <= 1.0:
-        raise ValueError(
-            f"a fit from a sample requires an absolute maxSamples (> 1), got fraction {p.max_samples!r}"
-        )
-    num_samples = int(math.floor(p.max_samples))
+    num_samples = _require_absolute_max_samples(p)
     if bag.shape[1] != num_samples:
         raise ValueError(
             f"bag has {bag.shape[1]} samples per tree but maxSamples resolves to {num_samples}"
@@ -383,7 +439,37 @@ def _fit_from_sample_impl(est, X_sample, bag, *, extended: bool, nonfinite: str,
     # max(U, S) keeps the small-dataset cap from shrinking S below the bag width
     resolved = resolve_params(p, f, max(u, num_samples))
     return _grow_and_threshold(p, X, resolved, extended, _seed_key(p, dev), checkpoint, baseline,
-                               bag=bag.to(torch.int32))
+                               int(source_rows) if source_rows else u, bag=bag.to(torch.int32),
+                               sampler_sha256=sample_sha256)
+
+
+def _fit_source_impl(est, source, *, extended: bool, chunk_rows, nonfinite: str, checkpoint,
+                     baseline: bool) -> "IsolationForestModel":
+    """``fit_source`` of both estimators: one pass over the source through
+    the streamed sampler on the host (with ``bootstrap``, a row count
+    first, then the with-replacement bags' rows), then
+    :func:`_fit_from_sample_impl` of the sample."""
+    from ..io.source import open_source
+    from ..ops.bagging import StreamedBagger, materialise_bootstrap_sample, streamed_bootstrap_indices
+
+    src = open_source(source)
+    p = est.params
+    num_samples = _require_absolute_max_samples(p)
+    if p.bootstrap:
+        idx = streamed_bootstrap_indices(p.random_seed, p.num_estimators, num_samples, src.total_rows())
+        sample = materialise_bootstrap_sample(src.iter_chunks(chunk_rows=chunk_rows), idx)
+    else:
+        bagger = StreamedBagger(p.random_seed, p.num_estimators, num_samples)
+        for chunk in src.iter_chunks(chunk_rows=chunk_rows):
+            bagger.consume(chunk.X)
+        sample = bagger.finalize()
+    logger.info(
+        "streamed sample: %d distinct rows from a %d-row source (%d trees x %d samples)",
+        sample.X.shape[0], sample.total_rows, p.num_estimators, num_samples,
+    )
+    return _fit_from_sample_impl(est, sample.X, sample.bag, extended=extended, nonfinite=nonfinite,
+                                 checkpoint=checkpoint, baseline=baseline, sample_sha256=sample.sha256,
+                                 source_rows=sample.total_rows)
 
 
 def _compute_and_set_threshold(model: "IsolationForestModel", X: torch.Tensor) -> None:

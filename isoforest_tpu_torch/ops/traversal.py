@@ -346,6 +346,16 @@ _EXT_KERNELS = {
 STRATEGIES = tuple(_KERNELS)
 
 
+def check_strategy_name(strategy: str) -> None:
+    """Refuse a strategy the port does not serve (the JAX package's
+    ``gather``, ``pallas`` and ``native`` among them) with a ValueError."""
+    if strategy != "auto" and strategy not in STRATEGIES:
+        raise ValueError(
+            f"unknown scoring strategy {strategy!r}; expected 'auto', "
+            + ", ".join(repr(s) for s in STRATEGIES)
+        )
+
+
 def forest_min_features(forest) -> int:
     """Smallest row width the forest can walk: ``1 + max(feature id)``
     (for an extended forest, of its hyperplane coordinates)."""
@@ -439,11 +449,7 @@ def score_matrix(
             strategy = decision.strategy
             _set_span_attrs(strategy=strategy, strategy_source=decision.source, rows=n)
         else:
-            if strategy not in STRATEGIES:
-                raise ValueError(
-                    f"unknown scoring strategy {strategy!r}; expected 'auto', "
-                    + ", ".join(repr(s) for s in STRATEGIES)
-                )
+            check_strategy_name(strategy)
             _set_span_attrs(strategy=strategy, strategy_source="explicit", rows=n)
         if strategy == "q16":
             reason = quantized_unsupported_reason(forest, cache)

@@ -114,12 +114,14 @@ def fit_fingerprint(
     block_trees: int,
     data_sha256: str,
     extension_level: Optional[int] = None,
+    sampler_sha256: Optional[str] = None,
 ) -> Dict[str, object]:
     """Everything that determines the grown forest's bits, and the block
-    partition: a resumed fit must agree on every field. (The JAX package's
-    out-of-core fit adds ``samplerSha256``; the port has no such fit, so
-    such a checkpoint never matches here.)"""
-    return {
+    partition: a resumed fit must agree on every field. ``sampler_sha256``,
+    the streamed sample's hash, is set only by an out-of-core fit
+    (``fit_source``), and joins as ``samplerSha256`` only then, so a plain
+    fit's fingerprint stays as it was and a resume cannot mix samples."""
+    out = {
         "checkpointVersion": CHECKPOINT_VERSION,
         "kind": kind,
         "randomSeed": int(random_seed),
@@ -134,6 +136,9 @@ def fit_fingerprint(
         "extensionLevel": None if extension_level is None else int(extension_level),
         "dataSha256": str(data_sha256),
     }
+    if sampler_sha256 is not None:
+        out["samplerSha256"] = str(sampler_sha256)
+    return out
 
 
 def _fingerprint_sha(fingerprint: Dict[str, object]) -> str:

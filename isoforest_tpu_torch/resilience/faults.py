@@ -9,6 +9,9 @@ nothing is armed:
   prefix (``=<bytes>``, default half), the torn-download case;
 * :func:`check_fit_block`, in a checkpointed fit: ``kill_fit_after_block=<k>``
   raises right after block ``k`` is sealed, the preemption a resume exists for;
+* :func:`check_score_shard`, in ``io.outofcore.score_source``:
+  ``kill_score_after_shard=<k>`` raises right after shard ``k``'s scores
+  are sealed, the preemption a resumed scoring run exists for;
 * :func:`check_strategy`, in ``score_matrix`` before a strategy runs:
   ``raise_strategy=<name>`` makes that strategy raise;
 * :func:`maybe_slow_collective`, the streaming executor's prelude inside the
@@ -35,8 +38,8 @@ from typing import Callable, Dict, List, Optional, Union
 FAULTS_ENV = "ISOFOREST_TPU_FAULTS"
 
 KNOWN_FAULTS = frozenset({
-    "corrupt_avro", "truncate_data", "kill_fit_after_block", "raise_strategy", "slow_collective",
-    "break_pipeline_stage",
+    "corrupt_avro", "truncate_data", "kill_fit_after_block", "kill_score_after_shard", "raise_strategy",
+    "slow_collective", "break_pipeline_stage",
 })
 
 FaultValue = Union[bool, int, str]
@@ -126,6 +129,21 @@ def check_fit_block(block_index: int) -> None:
         raise FaultInjectedError(
             f"injected fault: fit killed after sealing block {block_index} "
             f"(kill_fit_after_block={value!r}) — resume with fit(..., resume=True)"
+        )
+
+
+def check_score_shard(shard_index: int) -> None:
+    """Raise :class:`FaultInjectedError` when ``kill_score_after_shard``
+    names the source shard whose scores were just sealed: the sink holds
+    what a real kill between shards leaves, and ``score_source(...,
+    resume=True)`` skips every sealed shard."""
+    value = get("kill_score_after_shard")
+    if value is None or value is False:
+        return
+    if int(value) == int(shard_index):
+        raise FaultInjectedError(
+            f"injected fault: scoring killed after sealing shard {shard_index} "
+            f"(kill_score_after_shard={value!r}) — resume with score_source(..., resume=True)"
         )
 
 
