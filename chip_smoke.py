@@ -217,9 +217,31 @@ Then the out-of-core data plane, the kernels run chunk by chunk from disk:
     2e-6 of the committed JAX scores; a parquet shard read where ``pyarrow``
     imports, else refused with ``SourceFormatError``.
 
+Then the online scoring service, over HTTP on the card:
+
+30. http_serving, for each fixture: ``serving.serve_model`` on
+    ``127.0.0.1`` (a free port, ``lifecycle=False``, the default device, the
+    1, 64 and 4,096-row buckets warmed); with every launch counter at 0 just
+    before and read just after, JSON requests of 1, 64 and 4,096 rows, the
+    11,183 mammography rows as CSV, one JSON request of 50,000 rows (past the
+    largest warmed bucket: it streams through the executor in 4,096-row
+    chunks), 32 concurrent 1-row requests from threads (fewer flushes than
+    requests), and 200 closed-loop requests of 1 and of 64 rows at the 2 ms
+    linger and at 0 (client and server p50/p99, flush and ``model.score``
+    times); ``/trace`` of the first request converts to a Chrome trace,
+    ``/metrics`` counts every response by status, ``/healthz`` carries the
+    serving state, ``/debug/bundle`` has exactly the bundle's sections and no
+    steady compile; then every answer equal bit for bit to one
+    ``model.score`` call on the card of the same rows, the mammography
+    answers within 2e-6 of the committed JAX scores of the resolved
+    strategy, and each strategy the buckets resolved to launched its kernel.
+    A ``{"serving": ...}`` line holds both fixtures' latencies beside the
+    ``nvidia-smi`` line.
+
 Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
 with its launches in the 1M-row fit and ``ext_walk_sum`` with its launches
-in the 1M-row EIF fit, ``fit_launches``), the ``nvidia-smi`` name and
+in the 1M-row EIF fit, ``fit_launches``; each with its launches through
+phase 30, ``serving_launches``), the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises and exits non-zero. The run's autotune tables live in
 ``build/`` (git-ignored), fresh each run, so every run probes cold. With
@@ -2026,6 +2048,261 @@ def out_of_core_phases(dev, X_m, y_m, X_big) -> None:
     emit(out)
 
 
+SERVING_WARM = (1, 64, 4096)  # the warmed buckets of phase 30
+SERVING_OVERSIZE_ROWS = 50_000  # a request past the largest warmed bucket
+SERVING_CONCURRENT = 32
+SERVING_LATENCY_REQUESTS = 200
+SERVING_TIMEOUT_S = 60.0
+# the committed JAX scores of each EIF strategy's counterpart (the standard
+# fixture's walk and dense both hold to its gather scores, phase 3)
+EIF_JAX_SCORES = {"walk": "jax_walk_scores.npy", "dense": "jax_pallas_scores.npy"}
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from isoforest_tpu_torch.ops import dense, ext_dense, ext_path
+
+    return {**ext_path.launches, "dense_mean": dense.dense_mean.launches,
+            "ext_dense_mean": ext_dense.ext_dense_mean.launches}
+
+
+def zero_launch_counts() -> None:
+    from isoforest_tpu_torch.ops import dense, ext_dense, ext_path
+
+    for name in ext_path.launches:
+        ext_path.launches[name] = 0
+    dense.dense_mean.launches = 0
+    ext_dense.ext_dense_mean.launches = 0
+
+
+def http_request(url: str, path: str, body=None, content_type: str = "application/json"):
+    """``(status, headers, text)`` of one request, with a timeout."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=body, headers={"Content-Type": content_type})
+    try:
+        with urllib.request.urlopen(req, timeout=SERVING_TIMEOUT_S) as resp:
+            return resp.status, dict(resp.headers), resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, dict(exc.headers), exc.read().decode()
+
+
+def percentile_ms(values, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values) * 1e3, q))
+
+
+def serve_fixture(kind: str, fixture, X_m, X_big) -> tuple:
+    """Phase 30 for one fixture (see ``serving_phases``); returns its phase
+    line and its launches by kernel name."""
+    import threading
+
+    import numpy as np
+
+    from isoforest_tpu_torch import telemetry, tuning
+    from isoforest_tpu_torch.serving import ServingConfig, serve_model
+
+    telemetry.reset()
+    telemetry.reset_resources()
+    out = {"phase": "http_serving", "fixture": kind}
+    config = ServingConfig(max_queue_rows=1 << 17, request_timeout_s=SERVING_TIMEOUT_S)
+    t0 = time.perf_counter()
+    handle = serve_model(str(fixture / "model"), port=0, host="127.0.0.1", config=config, lifecycle=False,
+                         warm_batch_sizes=SERVING_WARM)
+    try:
+        out["start_s"] = time.perf_counter() - t0
+        service, url = handle.service, handle.url
+        model = service.model
+        require(model.device.type == "cuda", f"{kind}: served on {model.device}")
+        warm = [(e.fields["buckets"], e.fields["strategies"]) for e in telemetry.get_events(kind="serving.warmup")]
+        require(len(warm) == 1, f"{kind}: {len(warm)} serving.warmup events")
+        out["warmed"] = {"buckets": warm[0][0], "strategies": json.loads(warm[0][1])}
+        sent = {}
+        answers = {}
+
+        def post_json(name, rows, single=False):
+            payload = {"row": rows[0].tolist()} if single else {"rows": rows.tolist()}
+            status, headers, body = http_request(url, "/score", json.dumps(payload).encode())
+            sent[status] = sent.get(status, 0) + 1
+            require(status == 200, f"{kind} {name}: HTTP {status}: {body[:200]}")
+            doc = json.loads(body)
+            answers[name] = (rows, np.asarray(doc["scores"], np.float32), doc)
+            return headers
+
+        # every path of the phase with the launch counters at 0 just before
+        zero_launch_counts()
+        t_drive = time.perf_counter()
+        headers = post_json("json_1", X_m[:1], single=True)
+        trace_id = headers["X-Isoforest-Trace"]
+        post_json("json_64", X_m[:64])
+        post_json("json_4096", X_m[:4096])
+        csv = "\n".join(",".join(repr(float(v)) for v in row) for row in X_m).encode()
+        status, _, body = http_request(url, "/score", csv, content_type="text/csv")
+        sent[status] = sent.get(status, 0) + 1
+        require(status == 200, f"{kind} csv: HTTP {status}: {body[:200]}")
+        answers["csv_mammography"] = (X_m, np.asarray([float(v) for v in body.splitlines()[1:]], np.float32),
+                                      None)
+        post_json("json_oversize", X_big[:SERVING_OVERSIZE_ROWS])
+        require(answers["json_oversize"][2]["flush_rows"] == SERVING_OVERSIZE_ROWS,
+                f"{kind}: the oversize request did not flush alone")
+
+        # the trace of the first request, as Chrome trace JSON
+        status, _, body = http_request(url, f"/trace?trace_id={trace_id}")
+        chrome = json.loads(body)
+        names = {e["name"] for e in chrome.get("traceEvents", ()) if e.get("ph") == "X"}
+        require(status == 200 and "serving.request" in names, f"{kind}: /trace gave {status} {sorted(names)}")
+        out["trace"] = {"trace_id": trace_id, "events": len(chrome["traceEvents"]), "spans": sorted(names)}
+
+        # concurrent 1-row requests, with the linger widened for the burst
+        flushes_before = sum(s["value"] for s in
+                             telemetry.registry().snapshot()["isoforest_serving_flushes_total"]["series"])
+        previous = service.coalescer.reconfigure(max_linger_s=0.02)
+        results, errors = [None] * SERVING_CONCURRENT, []
+        go = threading.Barrier(SERVING_CONCURRENT)
+
+        def worker(i):
+            try:
+                go.wait(timeout=SERVING_TIMEOUT_S)
+                status, _, body = http_request(url, "/score", json.dumps({"row": X_m[i].tolist()}).encode())
+                results[i] = (status, body)
+            except Exception as exc:  # surfaced below
+                errors.append(repr(exc))
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(SERVING_CONCURRENT)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVING_TIMEOUT_S)
+        service.coalescer.reconfigure(**previous)
+        require(not errors and not any(t.is_alive() for t in threads), f"{kind}: concurrent requests: {errors}")
+        for status, body in results:
+            sent[status] = sent.get(status, 0) + 1
+            require(status == 200, f"{kind} concurrent: HTTP {status}: {body[:200]}")
+        flushes = sum(s["value"] for s in
+                      telemetry.registry().snapshot()["isoforest_serving_flushes_total"]["series"]) - flushes_before
+        require(flushes < SERVING_CONCURRENT, f"{kind}: {SERVING_CONCURRENT} concurrent requests took {flushes} "
+                                              "flushes")
+        answers["concurrent"] = (X_m[:SERVING_CONCURRENT],
+                                 np.asarray([json.loads(b)["scores"][0] for _, b in results], np.float32), None)
+        out["concurrent"] = {"requests": SERVING_CONCURRENT, "flushes": flushes,
+                             "flush_requests": sorted({json.loads(b)["flush_requests"] for _, b in results})}
+
+        # closed-loop latency: one client, 1 and 64 rows, at the default
+        # linger (2 ms) and at 0
+        latency = {}
+        for linger_ms in (config.linger_ms, 0.0):
+            service.coalescer.reconfigure(max_linger_s=linger_ms / 1e3)
+            for n in (1, 64):
+                body = json.dumps({"rows": X_m[:n].tolist()}).encode()
+                lat = []
+                for i in range(5 + SERVING_LATENCY_REQUESTS):
+                    if i == 5:  # after five warm-up requests
+                        telemetry.reset_spans()
+                    t1 = time.perf_counter()
+                    status, _, _ = http_request(url, "/score", body)
+                    lat.append(time.perf_counter() - t1)
+                    sent[status] = sent.get(status, 0) + 1
+                    require(status == 200, f"{kind}: latency request HTTP {status}")
+                lat = lat[5:]
+                flush = [r.wall_s for r in telemetry.span_records("serving.flush")]
+                request = [r.wall_s for r in telemetry.span_records("serving.request")]
+                score = [r.wall_s for r in telemetry.span_records("model.score")]
+                latency[f"linger_{linger_ms:g}ms_rows_{n}"] = {
+                    "client_p50_ms": percentile_ms(lat, 50), "client_p99_ms": percentile_ms(lat, 99),
+                    "client_mean_ms": float(np.mean(lat)) * 1e3,
+                    "server_request_p50_ms": percentile_ms(request, 50),
+                    "server_request_p99_ms": percentile_ms(request, 99),
+                    "flush_p50_ms": percentile_ms(flush, 50), "flush_p99_ms": percentile_ms(flush, 99),
+                    # server times over the requests whose spans the span ring (512) kept
+                    "model_score_p50_ms": percentile_ms(score, 50), "server_samples": len(request)}
+        service.coalescer.reconfigure(**previous)
+        out["latency"] = latency
+        out["drive_s"] = time.perf_counter() - t_drive
+        launches = launch_counts()
+        out["launches"] = {k: v for k, v in launches.items() if v}
+
+        # the telemetry endpoints
+        status, _, text = http_request(url, "/metrics")
+        parsed = telemetry.parse_prometheus(text)
+        responses = {dict(k)["code"]: v for k, v in parsed["isoforest_serving_responses_total"].items()}
+        require(status == 200 and responses == {str(k): float(v) for k, v in sent.items()},
+                f"{kind}: /metrics counts {responses}, the phase sent {sent}")
+        status, _, text = http_request(url, "/healthz")
+        health = json.loads(text)
+        require(status == 200 and health["status"] == "ok" and health["serving"]["lifecycle"] is False
+                and health["serving"]["batch_rows"] == config.batch_rows, f"{kind}: /healthz {status} {health}")
+        status, _, text = http_request(url, "/debug/bundle")
+        bundle = json.loads(text)
+        require(status == 200 and sorted(bundle) == sorted(telemetry.BUNDLE_SECTIONS),
+                f"{kind}: /debug/bundle sections {sorted(bundle)}")
+        require(bundle["compiles"]["by_phase"]["steady"] == 0, f"{kind}: steady compiles {bundle['compiles']}")
+        require(bundle["config"]["backend"] == "gpu", f"{kind}: bundle backend {bundle['config']['backend']}")
+        status, _, text = http_request(url, "/snapshot")
+        require(status == 200 and "isoforest_serving_request_seconds" in json.loads(text)["metrics"],
+                f"{kind}: /snapshot")
+        out["responses"] = responses
+        out["compiles"] = bundle["compiles"]
+        out["compile_log"] = [[e["site"], e["key"], e["phase"], e["seconds"]] for e in bundle["compile_log"]]
+        out["memory"] = {"host_staging_peak_bytes": bundle["memory"]["host_staging_peak_bytes"],
+                         "plane": telemetry.model_plane_bytes(model)}
+    finally:
+        handle.close()
+
+    # the answers against one model.score call on the card, bit for bit, and
+    # the mammography rows against the committed JAX scores
+    checks = {}
+    for name, (rows, got, _) in answers.items():
+        want = model.score(rows).cpu().numpy()
+        require(got.shape == want.shape and np.isfinite(got).all(), f"{kind} {name}: bad scores {got.shape}")
+        checks[name] = int((got != want).sum())
+        require(checks[name] == 0, f"{kind} {name}: {checks[name]} scores differ from model.score")
+    out["answers_differing_from_model_score"] = checks
+    if kind == "standard":
+        jax_file = "jax_scores.npy"
+    else:
+        resolved = tuning.resolve_decision(model.forest, X_m, model.num_samples, cache=model._cache)
+        jax_file = EIF_JAX_SCORES[resolved.strategy]
+    err = float(np.abs(answers["csv_mammography"][1] - np.load(fixture / jax_file)).max())
+    require(err <= 2e-6, f"{kind}: the served mammography scores differ from {jax_file} by {err}")
+    out["mammography_vs_jax"] = {"file": jax_file, "max_abs_err": err}
+    path_kernels = {"standard": {"walk": "walk_sum", "dense": "dense_mean"},
+                    "extended": {"walk": "ext_walk_sum", "dense": "ext_sparse_mean"}}[kind]
+    for strategy in set(out["warmed"]["strategies"].values()):
+        kernel = path_kernels.get(strategy)  # q16 (the CPU's pool only) has none
+        require(kernel is None or launches[kernel] > 0,
+                f"{kind}: buckets resolve to {strategy}, but {kernel} never launched")
+    return out, launches
+
+
+def serving_phases(X_m, X_big, smi: str) -> dict:
+    """Phase 30: the online scoring service on the card. For each fixture,
+    ``serve_model`` (lifecycle off, the default device) with buckets 1, 64
+    and 4,096 warmed; JSON requests of 1, 64 and 4,096 rows, the mammography
+    rows as CSV, one request of 50,000 rows (past the largest warmed bucket:
+    it streams in 4,096-row chunks), 32 concurrent 1-row requests from
+    threads (fewer flushes than requests), and closed-loop latency of 200
+    requests at 1 and 64 rows; each answer bitwise one ``model.score`` call
+    on the card, the mammography answers within 2e-6 of the committed JAX
+    scores; ``/metrics`` counts every response, ``/healthz`` carries the
+    serving state, ``/debug/bundle`` has exactly the bundle's sections and no
+    steady compile, ``/trace`` converts to a Chrome trace. Returns the
+    launches through serving by kernel name (the counters at 0 just before
+    each fixture's requests, read just after)."""
+    t_phase = time.perf_counter()
+    total = {}
+    latency = {}
+    for kind, fixture in (("standard", FIXTURE), ("extended", EIF_FIXTURE)):
+        line, launches = serve_fixture(kind, fixture, X_m, X_big)
+        emit(line)
+        latency[kind] = line["latency"]
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+    emit({"serving": latency, "nvidia_smi": smi, "phase_s": time.perf_counter() - t_phase})
+    return total
+
+
 def main() -> int:
     if not (ROOT / "isoforest_tpu_torch").is_dir() or not FIXTURE.is_dir() or not EIF_FIXTURE.is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -2269,18 +2546,20 @@ def main() -> int:
     executor_phases(dev, X_m, X_big)
     q16_phases(dev, X_m, X_big)
     out_of_core_phases(dev, X_m, y_m, X_big)
+    serving_launches = serving_phases(X_m, X_big, smi)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",
          "replaces": "isoforest_tpu/ops/pallas_walk.py:312", "launches": launches["walk"],
-         "fit_launches": fit_launches,
+         "fit_launches": fit_launches, "serving_launches": serving_launches["walk_sum"],
          "max_abs_err": max(walk_err, walk_small_err), "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
          "bound_ms": walk_bound, "bound_by": walk_by, "library_ms": None},
         {"name": "dense_mean", "route": "cuda", "source": "isoforest_tpu_torch/csrc/dense.cu",
          "replaces": "isoforest_tpu/ops/pallas_traversal.py:278", "launches": launches["dense"],
+         "serving_launches": serving_launches["dense_mean"],
          "max_abs_err": dense_err, "ms": times["dense_ms"], "plain_ms": times["dense_plain_ms"],
          "bound_ms": dense_bound, "bound_by": dense_by, "library_ms": None},
-        *ext_kernels,
+        *({**k, "serving_launches": serving_launches[k["name"]]} for k in ext_kernels),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -26,13 +26,17 @@ runs the kernels' plain PyTorch versions.
 streaming executor (:mod:`.ops.streaming`); :mod:`.telemetry` holds spans,
 metrics and events, :mod:`.resilience` the watchdog and the fault seams,
 :mod:`.io` model files and the out-of-core data plane (sharded sources,
-``score_source``, ``read_scores``).
+``score_source``, ``read_scores``), :mod:`.serving` the online scoring service
+(``serving.serve_model``: ``POST /score`` on the telemetry daemon, requests
+coalesced into one ``model.score`` a flush).
 """
 
-from . import io, resilience, telemetry, tuning
+from . import io, resilience, serving, telemetry, tuning
 from .io import persistence
 from .models import ExtendedIsolationForest, ExtendedIsolationForestModel, IsolationForest, IsolationForestModel
 from .ops.traversal import score_matrix
+
+__version__ = "0.6.0"
 
 
 def load_model(path: str, device=None, require_success: bool = True, verify="auto",
@@ -48,4 +52,4 @@ def load_model(path: str, device=None, require_success: bool = True, verify="aut
 
 
 __all__ = ["ExtendedIsolationForest", "ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel",
-           "io", "load_model", "resilience", "score_matrix", "telemetry", "tuning"]
+           "__version__", "io", "load_model", "resilience", "score_matrix", "serving", "telemetry", "tuning"]

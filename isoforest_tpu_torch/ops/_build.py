@@ -5,8 +5,10 @@ becomes its own shared library for ``sm_90a``, built at first use into
 ``build/isoforest_tpu_torch/`` beside the package (the ``build/`` directory
 is git-ignored). A library's file name carries a hash of its source and of
 the nvcc flags, so an edited kernel or a change of flags is rebuilt and a
-stale library never loaded. Nothing here runs at
-import: the CPU-only test machine imports every module.
+stale library never loaded. Each build reports its seconds as an
+``NVCC_BUILD_EVENT`` (:mod:`..utils.monitoring`), which the resource plane
+counts as a compile. Nothing here runs at import: the CPU-only test
+machine imports every module.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, Sequence
+
+from ..utils import monitoring
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -91,6 +95,7 @@ def build(names: Iterable[str] = tuple(SOURCES), ptxas_verbose: bool = False) ->
         _, tmp, target, _ = procs[name]
         os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
         report[name] = {"seconds": seconds, "log": log}
+        monitoring.record_event_duration_secs(monitoring.NVCC_BUILD_EVENT, seconds, key=f"nvcc:{name}")
     if failed:
         raise RuntimeError("\n".join(failed))
     return report

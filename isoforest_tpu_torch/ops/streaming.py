@@ -60,6 +60,7 @@ import torch
 from ..resilience import faults
 from ..resilience.degradation import degrade
 from ..telemetry import _state as _telemetry_state
+from ..telemetry import resources as _resources
 from ..telemetry.events import record_event
 from ..telemetry.metrics import counter as _telemetry_counter
 from ..telemetry.metrics import gauge as _telemetry_gauge
@@ -284,15 +285,20 @@ class StreamingExecutor:
         if self._prelude is not None:
             self._prelude()
         check = self._nonfinite != "allow"
-        if n <= self.chunk_rows:
-            # one chunk: nothing to overlap
-            xc = X if X.device == self.device else X.to(self.device)
-            if _telemetry_state.enabled():
-                _PIPELINE_CHUNKS.inc(1, site=self._site)
-            out = self._run_chunk(xc)
-            bad = count_non_finite(xc) if check else None
-        else:
-            out, bad = self._run_streamed(X, n, check)
+        # the executor is the one dispatch seam of every chunked scoring
+        # path, so a kernel build its launches trigger attributes here by
+        # default; semantic callers (serving.prewarm, autotune probes) open
+        # an outer scope and win the attribution
+        with _resources.compile_scope(self._site, key=f"rows={min(n, self.chunk_rows)}"):
+            if n <= self.chunk_rows:
+                # one chunk: nothing to overlap
+                xc = X if X.device == self.device else X.to(self.device)
+                if _telemetry_state.enabled():
+                    _PIPELINE_CHUNKS.inc(1, site=self._site)
+                out = self._run_chunk(xc)
+                bad = count_non_finite(xc) if check else None
+            else:
+                out, bad = self._run_streamed(X, n, check)
         if bad is not None:
             report_non_finite(int(bad), self._nonfinite)
         return out
@@ -310,6 +316,9 @@ class StreamingExecutor:
         out = torch.empty(n, dtype=torch.float32, device=dev)
         bad = torch.zeros((), dtype=torch.int64, device=dev) if check else None
         staging, cached = _acquire_staging(dev, chunk, int(X.shape[1])) if host and committed else (None, False)
+        if staging is not None:
+            # both host buffers, live for the run: the resource plane's watermark
+            _resources.note_host_staging(self._site, 2 * chunk * int(X.shape[1]) * 4)
         t_start = time.perf_counter()
         h2d_s = 0.0
         n_chunks = 0

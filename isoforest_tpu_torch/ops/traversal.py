@@ -37,10 +37,12 @@ import torch
 from ..resilience import faults
 from ..resilience.degradation import degrade
 from ..telemetry import _state as _telemetry_state
+from ..telemetry import resources as _resources
 from ..telemetry.metrics import counter as _telemetry_counter
 from ..telemetry.metrics import histogram as _telemetry_histogram
 from ..telemetry.spans import set_span_attrs as _set_span_attrs
 from ..telemetry.spans import span as _span
+from ..utils import monitoring
 from ..utils.device import resolve_device
 from ..utils.math import fma_f32, height_of, score_from_path_length
 from ..utils.validation import check_nonfinite_policy, extract_features, validate_feature_vector_size
@@ -367,11 +369,17 @@ def scoring_tables(forest, strategy: str, device, cache: dict):
     """The tables of ``strategy`` for ``forest`` on ``device``, built on
     first use into the caller's per-forest ``cache`` under ``(strategy,
     device)``: each strategy keeps its own entry, so a model serving both
-    planes keeps both."""
+    planes keeps both. A build reports its seconds as a
+    ``TABLE_BUILD_EVENT`` (:mod:`..utils.monitoring`), which the resource
+    plane counts as a compile."""
     tables = cache.get((strategy, device))
     if tables is None:
         build = (_EXT_KERNELS if isinstance(forest, ExtendedForest) else _KERNELS)[strategy][0]
-        tables = cache[(strategy, device)] = build(forest)
+        t0 = time.perf_counter()
+        tables = build(forest)
+        monitoring.record_event_duration_secs(monitoring.TABLE_BUILD_EVENT, time.perf_counter() - t0,
+                                              key=f"tables:{strategy}")
+        cache[(strategy, device)] = tables
     return tables
 
 
@@ -461,7 +469,8 @@ def score_matrix(
                 _set_span_attrs(strategy=strategy)
         faults.check_strategy(strategy)
         _, run = (_EXT_KERNELS if isinstance(forest, ExtendedForest) else _KERNELS)[strategy]
-        tables = scoring_tables(forest, strategy, dev, cache)
+        with _resources.compile_scope("score_matrix", key=f"rows={n}"):
+            tables = scoring_tables(forest, strategy, dev, cache)
         executor = StreamingExecutor(
             lambda chunk_rows: run(chunk_rows, tables), chunk, device=dev, site="score_matrix",
             streaming=pipeline_enabled(pipeline), timeout_s=timeout_s, describe=f"scoring strategy {strategy!r}",

@@ -19,7 +19,18 @@ nothing is armed:
   the watchdog exists to bound;
 * ``break_pipeline_stage``, read by ``ops.streaming.stage_available``:
   staging reports unavailable and a streamed call takes the
-  ``pipeline_fallback`` rung.
+  ``pipeline_fallback`` rung;
+* :func:`take_replica_kill`, in the telemetry daemon's ``POST /score``
+  dispatch of a server with a scoring service mounted:
+  ``kill_replica_during_score[=<n>|exit]`` severs the connection of the
+  next (or the n-th) scoring request without a response, or exits the
+  process;
+* :func:`maybe_wedge_healthz`, in the same server's ``GET /healthz``:
+  ``wedge_replica_healthz[=<seconds>]`` stalls the answer, the replica
+  that is alive but does not answer.
+
+:class:`FakeClock` is the injectable clock of the serving tests: its
+sleeps only advance virtual time.
 
 Faults arm with the :func:`inject` context manager or the
 ``ISOFOREST_TPU_FAULTS`` environment variable (comma-separated ``name`` or
@@ -39,7 +50,7 @@ FAULTS_ENV = "ISOFOREST_TPU_FAULTS"
 
 KNOWN_FAULTS = frozenset({
     "corrupt_avro", "truncate_data", "kill_fit_after_block", "kill_score_after_shard", "raise_strategy",
-    "slow_collective", "break_pipeline_stage",
+    "slow_collective", "break_pipeline_stage", "kill_replica_during_score", "wedge_replica_healthz",
 })
 
 FaultValue = Union[bool, int, str]
@@ -180,3 +191,85 @@ def maybe_slow_collective(strategy: Optional[str] = None, clock: Callable[[], fl
     start = clock()
     while active("slow_collective") and clock() - start < limit:
         sleep(0.01)
+
+
+def take_replica_kill() -> Optional[str]:
+    """Consume a ``kill_replica_during_score`` token at the scoring
+    dispatch; returns ``"sever"`` (close the connection without a
+    response: the client sees a torn wire), ``"exit"`` (end the process) or
+    None. Values: ``True``/``1`` sever the next scoring request, ``<n>``
+    the n-th from now (counted down in place), ``"exit"`` exits on the
+    next one. One-shot: the fault fires once, and a retried request goes
+    through."""
+    for frame in reversed(_STACK):
+        if "kill_replica_during_score" in frame:
+            value = frame["kill_replica_during_score"]
+            if value is None or value is False:
+                continue  # consumed frame: fall through to any outer one
+            if isinstance(value, str) and not value.isdigit():
+                frame["kill_replica_during_score"] = False
+                return "exit" if value == "exit" else "sever"
+            remaining = int(value)
+            if remaining <= 1:
+                frame["kill_replica_during_score"] = False
+                return "sever"
+            frame["kill_replica_during_score"] = remaining - 1
+            return None
+    global _ENV_REPLICA_KILL_STATE
+    if _ENV_REPLICA_KILL_STATE == "consumed":
+        return None
+    value = _parse_env().get("kill_replica_during_score")
+    if value is None or value is False:
+        return None
+    if isinstance(value, str) and not value.isdigit():
+        _ENV_REPLICA_KILL_STATE = "consumed"
+        return "exit" if value == "exit" else "sever"
+    remaining = int(value) if _ENV_REPLICA_KILL_STATE is None else int(_ENV_REPLICA_KILL_STATE)
+    if remaining <= 1:
+        _ENV_REPLICA_KILL_STATE = "consumed"
+        return "sever"
+    _ENV_REPLICA_KILL_STATE = remaining - 1
+    return None
+
+
+# the environment-armed countdown: None (untouched), the requests left, or
+# "consumed" (the one-shot fired)
+_ENV_REPLICA_KILL_STATE: Optional[FaultValue] = None
+
+
+def maybe_wedge_healthz(clock: Callable[[], float] = time.monotonic,
+                        sleep: Callable[[float], None] = time.sleep) -> None:
+    """Stall while ``wedge_replica_healthz`` is armed: ``True`` (30 s cap)
+    or a number (that many seconds). The stall re-checks its arming every
+    10 ms, so leaving :func:`inject` releases the handler thread promptly."""
+    value = get("wedge_replica_healthz")
+    if value is None or value is False:
+        return
+    limit = 30.0
+    if not isinstance(value, bool):
+        try:
+            limit = float(value)
+        except (TypeError, ValueError):
+            pass
+    start = clock()
+    while active("wedge_replica_healthz") and clock() - start < limit:
+        sleep(0.01)
+
+
+class FakeClock:
+    """Deterministic injectable clock: ``now``/``sleep`` advance virtual
+    time only, and every requested sleep is recorded."""
+
+    def __init__(self, start: float = 0.0) -> None:
+        self._now = float(start)
+        self.sleeps: List[float] = []
+
+    def now(self) -> float:
+        return self._now
+
+    def sleep(self, seconds: float) -> None:
+        self.sleeps.append(float(seconds))
+        self._now += float(seconds)
+
+    def advance(self, seconds: float) -> None:
+        self._now += float(seconds)

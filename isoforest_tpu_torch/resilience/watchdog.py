@@ -14,22 +14,36 @@ share staging buffers with a later call (:mod:`..ops.streaming`).
 
 torch's current stream and device are thread-local: the executor captures
 the caller's and enters them in the worker, so the kernels launch where the
-caller would have launched them. The JAX package's peer heartbeats belong to
-replication and are not ported.
+caller would have launched them.
+
+Heartbeats are the companion primitive: a :class:`HeartbeatWriter` rewrites
+a small JSON file every ``interval_s`` from a background thread, and
+:func:`peer_heartbeat_ages` reads a directory of them back, so a survivor
+(or the telemetry daemon's ``GET /healthz``) can tell a dead peer from a
+slow one. The files are the JAX package's: each package reads the other's.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 from ..telemetry.events import record_event
 from ..telemetry.metrics import counter as _counter
+from ..telemetry.metrics import gauge as _gauge
 
 _WATCHDOG_TIMEOUTS_TOTAL = _counter(
     "isoforest_watchdog_timeouts_total",
     "Watchdog deadlines that fired (the watched work was abandoned)",
+)
+_PEER_HEARTBEAT_AGE = _gauge(
+    "isoforest_peer_heartbeat_age_seconds",
+    "Seconds since each multihost peer's last heartbeat, at last read "
+    "(inf = unreadable/torn heartbeat file)",
+    labelnames=("peer",),
 )
 
 
@@ -105,3 +119,86 @@ def run_with_deadline(fn: Callable[[], object], timeout_s: float, *, describe: s
     if "error" in outcome:
         raise outcome["error"]
     return outcome["value"]
+
+
+_HEARTBEAT_PREFIX = "heartbeat-"
+
+
+class HeartbeatWriter:
+    """Background thread rewriting ``<dir>/heartbeat-<name>.json`` every
+    ``interval_s`` with a wall-clock time. Writes go to a temporary file and
+    ``os.replace``, so a reader never sees a torn file."""
+
+    def __init__(self, directory: str, name: str, interval_s: float = 1.0,
+                 clock: Callable[[], float] = time.time) -> None:
+        self.path = os.path.join(directory, f"{_HEARTBEAT_PREFIX}{name}.json")
+        self.name = str(name)
+        self.interval_s = float(interval_s)
+        self._clock = clock
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def beat(self) -> None:
+        """Write one heartbeat now (the background loop calls it too)."""
+        payload = {"name": self.name, "pid": os.getpid(), "time": self._clock()}
+        tmp = f"{self.path}.tmp-{os.getpid()}"
+        with open(tmp, "w") as fh:
+            json.dump(payload, fh)
+        os.replace(tmp, self.path)
+
+    def start(self) -> "HeartbeatWriter":
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        self.beat()  # the first beat at once: peers see this one immediately
+        self._thread = threading.Thread(target=self._loop, daemon=True, name=f"isoforest-heartbeat[{self.name}]")
+        self._thread.start()
+        record_event("heartbeat.start", peer=self.name, interval_s=self.interval_s)
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.beat()
+            except OSError:  # a full or vanished disk must not end the writer
+                pass
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2 * self.interval_s)
+            record_event("heartbeat.stop", peer=self.name)
+
+
+def peer_heartbeat_ages(directory: str, clock: Callable[[], float] = time.time) -> Dict[str, float]:
+    """``{peer: seconds since its last heartbeat}`` for every heartbeat file
+    in ``directory``; an unreadable or torn file reports ``inf`` (a peer that
+    died mid-write is still a dead peer). Each age is set on the
+    ``isoforest_peer_heartbeat_age_seconds{peer}`` gauge."""
+    ages: Dict[str, float] = {}
+    if not os.path.isdir(directory):
+        return ages
+    for fname in sorted(os.listdir(directory)):
+        if not fname.startswith(_HEARTBEAT_PREFIX) or not fname.endswith(".json"):
+            continue
+        name = fname[len(_HEARTBEAT_PREFIX):-len(".json")]
+        try:
+            with open(os.path.join(directory, fname)) as fh:
+                payload = json.load(fh)
+            ages[name] = max(0.0, clock() - float(payload["time"]))
+        except (OSError, ValueError, KeyError, TypeError):
+            ages[name] = float("inf")
+    for name, age in ages.items():
+        _PEER_HEARTBEAT_AGE.set(age, peer=name)
+    return ages
+
+
+def format_heartbeat_ages(ages: Dict[str, float], stale_after_s: float) -> str:
+    """One line for a timeout's diagnostics; peers whose last beat is older
+    than ``stale_after_s`` are flagged as likely dead."""
+    if not ages:
+        return "no peer heartbeats found"
+    parts = []
+    for name in sorted(ages):
+        age = ages[name]
+        flag = " (LIKELY DEAD)" if age > stale_after_s else ""
+        parts.append(f"peer {name}: last heartbeat {age:.1f}s ago{flag}")
+    return ", ".join(parts)

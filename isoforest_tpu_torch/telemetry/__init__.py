@@ -1,13 +1,66 @@
 """Telemetry of the port (``isoforest_tpu/telemetry``): the process-wide
 on/off switch, the event timeline, the metrics registry (counters, gauges,
 histograms), spans and traces (:mod:`.spans`, each span also a
-``torch.profiler`` range), the drift baseline and monitor (:mod:`.monitor`)
-and forest diagnostics (:mod:`.diagnostics`). Export (Chrome and Prometheus),
-HTTP, the journal, federation and resource accounting are not ported."""
+``torch.profiler`` range), the drift baseline and monitor (:mod:`.monitor`),
+forest diagnostics (:mod:`.diagnostics`), the exporters (:mod:`.export`:
+the JSON snapshot, Prometheus text and Chrome trace JSON, byte for byte the
+JAX package's), resource accounting (:mod:`.resources`: kernel and table
+builds counted as compiles, staging and plane bytes, the debug bundle) and
+the HTTP daemon (:mod:`.http`: ``/metrics``, ``/healthz``, ``/snapshot``,
+``/trace``, ``/traces/recent``, ``/debug/bundle`` and the routes serving
+mounts). The journal and federation are not ported.
+
+Setting ``ISOFOREST_TPU_METRICS_PORT`` before import starts the HTTP daemon
+on that port, as in the JAX package.
+"""
 
 from ._state import disable, enable, enabled
-from .events import Event, get_events, record_event, reset_events
-from .metrics import DEFAULT_LATENCY_BUCKETS, Histogram, counter, gauge, histogram, registry, reset_metrics
+from .events import Event, EventTimeline, get_events, record_event, reset_events, timeline
+from .export import (
+    parse_prometheus,
+    reset,
+    snapshot,
+    snapshot_json,
+    to_chrome_trace,
+    to_chrome_trace_json,
+    to_prometheus,
+)
+from .http import MetricsServer, active_server, maybe_serve_from_env, serve
+from .metrics import (
+    DEFAULT_LATENCY_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    counter,
+    exponential_buckets,
+    gauge,
+    histogram,
+    registry,
+    reset_metrics,
+)
+from .resources import (
+    BUNDLE_SCHEMA,
+    BUNDLE_SECTIONS,
+    build_bundle,
+    compile_counts,
+    compile_log,
+    compile_scope,
+    compile_seconds_total,
+    disable_resources,
+    enable_resources,
+    mark_steady,
+    mark_warmup,
+    memory_watermarks,
+    model_plane_bytes,
+    note_host_staging,
+    peak_host_staging_bytes,
+    reset_resources,
+    resident_plane_bytes,
+    resources_enabled,
+    warmup_scope,
+    write_bundle,
+)
 from .spans import (
     SpanRecord,
     TraceContext,
@@ -27,19 +80,20 @@ from .spans import (
 from .spans import records as span_records
 from .spans import summary as span_summary
 
-
-def reset() -> None:
-    """Clear recorded events, every metric series, spans and traces (tests, operators)."""
-    reset_events()
-    reset_metrics()
-    reset_spans()
-    reset_traces()
-
-
 __all__ = [
-    "DEFAULT_LATENCY_BUCKETS", "Event", "Histogram", "SpanRecord", "TraceContext", "counter", "current_context",
-    "current_span_name", "disable", "enable", "enabled", "gauge", "get_events", "get_trace", "histogram",
-    "recent_traces", "record_event", "registry", "reset", "reset_events", "reset_metrics", "reset_spans",
-    "reset_traces", "seed_trace_ids", "set_span_attrs", "set_trace_policy", "span", "span_records",
-    "span_summary", "trace_stats", "with_context",
+    "BUNDLE_SCHEMA", "BUNDLE_SECTIONS", "DEFAULT_LATENCY_BUCKETS", "Counter", "Event", "EventTimeline", "Gauge",
+    "Histogram", "MetricsRegistry", "MetricsServer", "SpanRecord", "TraceContext", "active_server",
+    "build_bundle", "compile_counts", "compile_log", "compile_scope", "compile_seconds_total", "counter",
+    "current_context", "current_span_name", "disable", "disable_resources", "enable", "enable_resources",
+    "enabled", "exponential_buckets", "gauge", "get_events", "get_trace", "histogram", "mark_steady",
+    "mark_warmup", "maybe_serve_from_env", "memory_watermarks", "model_plane_bytes", "note_host_staging",
+    "parse_prometheus", "peak_host_staging_bytes", "recent_traces", "record_event", "registry", "reset",
+    "reset_events", "reset_metrics", "reset_resources", "reset_spans", "reset_traces", "resident_plane_bytes",
+    "resources_enabled", "seed_trace_ids", "serve", "set_span_attrs", "set_trace_policy", "snapshot",
+    "snapshot_json", "span", "span_records", "span_summary", "timeline", "to_chrome_trace",
+    "to_chrome_trace_json", "to_prometheus", "trace_stats", "warmup_scope", "with_context", "write_bundle",
 ]
+
+# the live endpoint's opt-in: with ISOFOREST_TPU_METRICS_PORT set, any
+# process that imports the package serves its telemetry
+maybe_serve_from_env()

@@ -89,6 +89,11 @@ def record_event(kind: str, **fields: object) -> Optional[Event]:
     return _TIMELINE.record(kind, **fields)
 
 
+def timeline() -> EventTimeline:
+    """The process-wide timeline (its ``dropped`` count feeds snapshots)."""
+    return _TIMELINE
+
+
 def get_events(kind: Optional[str] = None, since_seq: Optional[int] = None) -> List[Event]:
     """Recorded events in order; optionally of one kind, or after a sequence number."""
     return _TIMELINE.events(kind=kind, since_seq=since_seq)

@@ -53,6 +53,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..telemetry import resources as _resources
 from ..telemetry.events import record_event
 from ..telemetry.metrics import counter as _telemetry_counter
 from .cost_model import cost_model
@@ -265,6 +266,7 @@ def resolve_decision(
     strict: bool = False,
     cache: Optional[dict] = None,
     refresh: bool = False,
+    site: str = "score_matrix",
 ) -> Decision:
     """Resolve ``strategy="auto"`` for one scoring call of ``X`` (a tensor on
     the host or on ``device``, default the forest's, or an array); emits exactly one decision
@@ -276,7 +278,8 @@ def resolve_decision(
     static default, ``fallback``); the fresh persisted table (``table``);
     a cold or stale key's probe (``probe``). ``chunk_rows`` (default: the
     executor's) bounds the probe; ``cache`` is the model's table cache;
-    ``refresh`` probes a fresh key again."""
+    ``refresh`` probes a fresh key again; ``site`` names the caller in the
+    decision's event (``serving.prewarm`` for serving's warm-up)."""
     from ..ops import streaming, traversal
     from ..resilience.degradation import degrade
 
@@ -284,7 +287,7 @@ def resolve_decision(
 
     X, _ = extract_features(X, nonfinite="allow")
     device = torch.device(device) if device is not None else forest.device
-    platform, site, static_default = device.type, "score_matrix", STATIC_DEFAULT
+    platform, static_default = device.type, STATIC_DEFAULT
     n = int(X.shape[0])
     key = decision_key(platform, forest, n, int(X.shape[1]), cache)
 
@@ -317,7 +320,10 @@ def resolve_decision(
         chunk = streaming.resolve_chunk_rows(chunk_rows, platform)
         rows = max(1, min(traversal.batch_bucket(n), chunk, _probe_rows_cap(platform)))
         Xp = _probe_slice(X, rows, device)
-        timings = _probe(forest, Xp, num_samples, eligible, cache=cache)
+        # a probe builds every eligible strategy's tables (and kernels) once:
+        # an expected one-time cost even after serving marks steady
+        with _resources.warmup_scope(), _resources.compile_scope("autotune.probe", key=key):
+            timings = _probe(forest, Xp, num_samples, eligible, cache=cache)
 
     order = {s: i for i, s in enumerate(eligible)}
     winner = min(timings, key=lambda s: (timings[s], order[s]))
