@@ -238,10 +238,34 @@ Then the online scoring service, over HTTP on the card:
     A ``{"serving": ...}`` line holds both fixtures' latencies beside the
     ``nvidia-smi`` line.
 
+Then the model lifecycle on the card (``lifecycle.ModelManager``, the
+README's default knobs, ``checkpoint_every=25``, the retry on a FakeClock;
+4,096-row batches of resampled mammography rows, in distribution, then
+shifted by 3 standard deviations per feature):
+
+31. lifecycle: (a) no in-distribution batch triggers a refit; (b) sustained
+    drift triggers one refit on the full 65,536-row window, killed after
+    block 1 (``kill_retrain_after_block``) and resumed, validated and
+    swapped: the 1M rows score bit for bit as a plain card fit of that
+    window with ``retrain_seed(1, 2)``, ``CURRENT.json`` names
+    ``gen-00002``, and drift falls back under its threshold on the
+    re-served rows; (c) ``fail_swap`` and ``corrupt_candidate`` roll back,
+    the incumbent's 1M scores bit for bit unchanged; (d) four threads score
+    through a swap stalled on an event, each answer bit for bit the old or
+    the new generation's; (e) a sliding refresh of ``mammography_eif``
+    keeps 50 trees bit for bit and grows 50 equal to a card growth from the
+    same draws; (f) ``serve_model(copy, lifecycle=True)`` over HTTP until
+    ``/healthz`` names generation 2, each answer bit for bit one
+    ``model.score`` of the generation it names. The line holds the refit's
+    wall and part times, the swap's lock hold, ``manager.score`` against
+    ``model.score`` at 1 and 4,096 rows idle and during a background
+    refit, and the phase's launches.
+
 Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
 with its launches in the 1M-row fit and ``ext_walk_sum`` with its launches
 in the 1M-row EIF fit, ``fit_launches``; each with its launches through
-phase 30, ``serving_launches``), the ``nvidia-smi`` name and
+phase 30, ``serving_launches``, and through phase 31,
+``lifecycle_launches``), the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises and exits non-zero. The run's autotune tables live in
 ``build/`` (git-ignored), fresh each run, so every run probes cold. With
@@ -2303,6 +2327,430 @@ def serving_phases(X_m, X_big, smi: str) -> dict:
     return total
 
 
+LIFECYCLE_BATCH = 4096  # rows of a served batch in phase 31
+LIFECYCLE_WINDOW = 65536  # the manager's default window_rows
+LIFECYCLE_WINDOW_BATCHES = LIFECYCLE_WINDOW // LIFECYCLE_BATCH
+LIFECYCLE_SHIFT_SD = 3.0  # the covariate shift of tests/test_lifecycle.py, in standard deviations per feature
+LIFECYCLE_IDLE_CALLS = 200
+LIFECYCLE_TRAFFIC_BATCHES = 120  # distinct 4,096-row batches of phase 31's traffic
+LIFECYCLE_LOAD_S = 60.0  # how long (g)'s client posts without a pause, at most
+
+# (g)'s client, a process of its own: posts the request bodies of a file (one
+# a line) back to back until a stop file appears, then prints its latencies
+LOAD_CLIENT = r"""
+import json, os, sys, time, urllib.request
+url, bodies_path, stop_path = sys.argv[1:4]
+bodies = open(bodies_path, "rb").read().split(b"\n")
+lat, not_ok = [], 0
+while not os.path.exists(stop_path):
+    req = urllib.request.Request(url + "/score", data=bodies[len(lat) % len(bodies)],
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            resp.read()
+            not_ok += resp.status != 200
+    except Exception:
+        not_ok += 1
+    lat.append(time.perf_counter() - t0)
+print(json.dumps({"latencies_s": lat, "not_ok": not_ok}))
+"""
+
+
+def latency_in_turns(manager, rows_by_n: dict, calls: int, until=None) -> dict:
+    """Host-clock latency of ``manager.score`` and of ``model.score`` of the
+    manager's model without the monitor's fold (the bare scoring under it),
+    each synchronised by its copy back, in turns, at each batch size; with
+    ``until``, the rounds stop once it is true. p50, p99 and the count."""
+    lat = {f"{who}_{n}": [] for n in rows_by_n for who in ("manager", "model")}
+    for _ in range(calls):
+        if until is not None and until():
+            break
+        for n, rows in rows_by_n.items():
+            t0 = time.perf_counter()
+            manager.score(rows).cpu()
+            lat[f"manager_{n}"].append(time.perf_counter() - t0)
+            model = manager.model
+            t0 = time.perf_counter()
+            model.score(rows, fold_monitor=False).cpu()
+            lat[f"model_{n}"].append(time.perf_counter() - t0)
+    return {k: {"p50_ms": percentile_ms(v, 50) if v else None, "p99_ms": percentile_ms(v, 99) if v else None,
+                "calls": len(v)} for k, v in lat.items()}
+
+
+def lifecycle_phases(dev, X_m, X_big, smi: str) -> dict:
+    """Phase 31: the model lifecycle on the card. Managers over copies of the
+    fixtures (the README's default knobs, ``checkpoint_every=25``: 4 refit
+    blocks; the retry on a FakeClock) take 4,096-row batches of the
+    resampled rows, in distribution, then shifted by 3 standard deviations
+    per feature. (a) no in-distribution batch triggers; (b) sustained drift
+    triggers one refit on the full 65,536-row window (the manager refits
+    only on a full window, ``min_window_rows=65536``), killed after block 1,
+    resumed, validated, swapped: the 1M rows score bit for bit as a plain
+    card fit of that window with ``retrain_seed(1, 2)``, ``CURRENT.json``
+    names ``gen-00002``, drift falls back under its threshold on the
+    re-served rows; (c) ``fail_swap`` and ``corrupt_candidate`` roll back,
+    the incumbent's scores bit for bit unchanged; (d) four threads score
+    through a swap stalled on an event, each answer bit for bit the old or
+    the new generation's; (e) a sliding refresh of ``mammography_eif`` keeps
+    50 trees bit for bit and grows 50 equal to a card growth from the same
+    draws; (f) ``serve_model(copy, lifecycle=True)`` over HTTP until
+    ``/healthz`` names generation 2, each answer bit for bit one
+    ``model.score`` of the generation it names; (g) the same under a client
+    process that posts without a pause, for at most 60 s: the refit's wall,
+    or that it did not finish under the load. The line holds the refit's
+    wall and part times, the swap's lock hold, ``manager.score`` against
+    ``model.score`` at 1 and 4,096 rows idle and during a background refit
+    (after (a)'s counted traffic, on its window), and the managed path's
+    launches: the counters at 0 just before each managed section and read
+    just after it, so no reference computation or bare ``model.score`` of
+    the latency probes counts. Returns those launches by kernel name."""
+    import contextlib
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import IsolationForest, load_model, telemetry
+    from isoforest_tpu_torch.lifecycle import ModelManager, retrain_seed
+    from isoforest_tpu_torch.models.extended import ExtendedIsolationForestModel
+    from isoforest_tpu_torch.models.isolation_forest import _grow_block
+    from isoforest_tpu_torch.ops import prng
+    from isoforest_tpu_torch.ops.bagging import bagged_indices, feature_subsets, per_tree_keys
+    from isoforest_tpu_torch.resilience import faults
+    from isoforest_tpu_torch.serving import ServingConfig, serve_model
+    from isoforest_tpu_torch.utils.math import height_limit
+
+    t_phase = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="lifecycle_", dir=build))
+    out = {"phase": "lifecycle", "nvidia_smi": smi}
+    # the traffic: mammography rows resampled as they are (X_big's jitter
+    # breaks the rows' ties with the trees' split values, and moves the
+    # score distribution past the drift threshold: that is drift)
+    traffic = X_m[np.random.default_rng(SEED + 31).integers(0, len(X_m), LIFECYCLE_TRAFFIC_BATCHES
+                                                                 * LIFECYCLE_BATCH)]
+    shift = (LIFECYCLE_SHIFT_SD * X_m.std(axis=0)).astype(np.float32)
+
+    def batch(i: int, shifted: bool) -> np.ndarray:
+        rows = traffic[i * LIFECYCLE_BATCH : (i + 1) * LIFECYCLE_BATCH]
+        return rows + shift if shifted else rows
+
+    def events(kind: str) -> list:
+        return telemetry.get_events(kind=kind)
+
+    clock = faults.FakeClock()
+    knobs = dict(drift_debounce=3, window_rows=LIFECYCLE_WINDOW, min_window_rows=1024, mode="full",
+                 checkpoint_every=25, clock=clock.now, sleep=clock.sleep)
+    launches = {}
+
+    @contextlib.contextmanager
+    def managed():
+        """A section of the managed path: the launch counters at 0 just
+        before it, read just after and added to the phase's launches."""
+        zero_launch_counts()
+        yield
+        for name, count in launch_counts().items():
+            launches[name] = launches.get(name, 0) + count
+
+    def refit_wall_s() -> float:
+        return events("retrain.swap")[-1].unix_s - events("retrain.start")[-1].unix_s
+
+    telemetry.reset()
+    try:
+        std_dir, eif_dir = tmp / "std", tmp / "eif"
+        shutil.copytree(FIXTURE / "model", std_dir)
+        shutil.copytree(EIF_FIXTURE / "model", eif_dir)
+
+        # (a) in distribution: no batch triggers; then the idle overhead
+        model_a = load_model(str(std_dir)).warmup((1, LIFECYCLE_BATCH))
+        require(model_a.device.type == "cuda", f"lifecycle: loaded on {model_a.device}")
+        with managed():
+            a = ModelManager(model_a, str(tmp / "lc-a"), **knobs)
+        try:
+            with managed():
+                for i in range(LIFECYCLE_WINDOW_BATCHES):
+                    a.score(batch(i, False))
+            require(a.generation == 1 and not events("retrain.start") and not a.retrain_in_progress,
+                    f"lifecycle (a): in-distribution traffic triggered a refit: {a.state()}")
+            out["a_in_distribution"] = {"batches": LIFECYCLE_WINDOW_BATCHES, "score_psi": a.monitor.drift()["score"]["psi"],
+                                        "threshold": a.monitor.threshold,
+                                        "consecutive_over_threshold": a.state()["consecutive_over_threshold"]}
+            # the overhead, uncounted: idle, then during a background refit
+            # of (a)'s window (a quiet one: no kill)
+            probes = {1: batch(0, False)[:1], LIFECYCLE_BATCH: batch(1, False)}
+            latency_in_turns(a, probes, 5)
+            out["latency_idle"] = latency_in_turns(a, probes, LIFECYCLE_IDLE_CALLS)
+            require(a.retrain(reason="latency_probe", wait=False) == "started", "lifecycle (a): no refit started")
+            out["latency_during_refit"] = latency_in_turns(a, probes, 10 ** 6, until=lambda: not a.retrain_in_progress)
+            require(a.wait_retrain(timeout_s=300), "lifecycle (a): the probed refit did not finish")
+            out["latency_during_refit"]["refit"] = {
+                "outcome": a.last_retrain["outcome"],
+                "wall_s": refit_wall_s() if a.last_retrain["outcome"] == "swapped" else None}
+        finally:
+            a.close()
+
+        # (b) sustained drift: one refit on the full window, killed after
+        # block 1 and resumed, then the swap
+        telemetry.reset()
+        model_b = load_model(str(std_dir)).warmup((1, LIFECYCLE_BATCH))
+        stall, entered, release = {"on": False}, threading.Event(), threading.Event()
+
+        def mid_swap():
+            if stall["on"]:
+                entered.set()
+                release.wait(120)
+
+        with managed():
+            b = ModelManager(model_b, str(tmp / "lc-b"), **dict(knobs, min_window_rows=LIFECYCLE_WINDOW),
+                             hooks={"mid_swap": mid_swap})
+        try:
+            with faults.inject(kill_retrain_after_block=1), managed():
+                for i in range(LIFECYCLE_WINDOW_BATCHES):
+                    require(b.generation == 1 and not b.retrain_in_progress,
+                            f"lifecycle (b): a refit started before the window was full (batch {i})")
+                    b.score(batch(i, True))
+                require(b.retrain_in_progress or b.generation == 2, "lifecycle (b): sustained drift did not trigger")
+                require(b.wait_retrain(timeout_s=300), "lifecycle (b): the refit did not finish")
+            info = b.last_retrain
+            require(info["outcome"] == "swapped" and b.generation == 2,
+                    f"lifecycle (b): outcome {info['outcome']}, state {b.state()}")
+            require(len(events("retrain.start")) == 1, "lifecycle (b): more than one refit")
+            trail = [(e.fields["index"], e.fields["resumed"]) for e in events("retrain.block")]
+            require(trail == [(0, False), (1, False), (0, True), (1, True), (2, False), (3, False)],
+                    f"lifecycle (b): block trail {trail}")
+            window = info["window"]
+            seed = retrain_seed(model_b.params.random_seed, 2)
+            require(window.shape == (LIFECYCLE_WINDOW, X_big.shape[1]) and info["seed"] == seed == 15839,
+                    f"lifecycle (b): window {window.shape}, seed {info['seed']}")
+            t0 = time.perf_counter()
+            plain = IsolationForest(params=model_b.params.replace(random_seed=seed)).fit(window)
+            torch.cuda.synchronize()
+            plain_fit_s = time.perf_counter() - t0
+            swapped = b.model
+            require(plain.device.type == "cuda" and swapped.device.type == "cuda", "lifecycle (b): off the card")
+            require(all(torch.equal(x, y) for x, y in zip(swapped.forest, plain.forest)),
+                    "lifecycle (b): the swapped forest differs from a plain card fit of the window")
+            s_new = swapped.score(X_big, fold_monitor=False)
+            require(torch.equal(s_new, plain.score(X_big)), "lifecycle (b): 1M scores differ from the plain fit's")
+            require(swapped.outlier_score_threshold == plain.outlier_score_threshold, "lifecycle (b): threshold")
+            current = json.loads((tmp / "lc-b" / "CURRENT.json").read_text())
+            require(current["generation"] == 2 and pathlib.Path(current["path"]).name == "gen-00002",
+                    f"lifecycle (b): CURRENT.json {current}")
+            validate = events("retrain.validate")[-1].fields
+            t = {e.kind: e.unix_s for e in telemetry.get_events() if e.kind.startswith(("retrain.", "retry."))}
+            blocks = [e.unix_s for e in events("retrain.block")]
+            start = events("retrain.start")[-1].unix_s
+            out["b_refit"] = {
+                "window_rows": int(window.shape[0]), "seed": seed, "trail": trail,
+                "wall_s": t["retrain.swap"] - start,
+                "parts_s": {"killed_attempt": t["retry.attempt"] - start,
+                            "resumed_growth": blocks[-1] - t["retry.attempt"],
+                            "threshold_baseline_validation": t["retrain.validate"] - blocks[-1],
+                            "save_and_flip": t["retrain.swap"] - t["retrain.validate"]},
+                "swap_lock_hold_ms": b.last_swap_lock_hold_s * 1e3, "plain_fit_s": plain_fit_s,
+                "validation": json.loads(validate["gates"]), "reference_rows": validate["reference_rows"],
+                "retry_sleeps_s": list(clock.sleeps)}
+            with managed():
+                for i in range(LIFECYCLE_WINDOW_BATCHES):
+                    b.score(batch(i, True))
+            psi, gauge = b.monitor.drift()["score"]["psi"], telemetry.gauge("isoforest_score_drift_psi").value()
+            require(psi < b.monitor.threshold and gauge < b.monitor.threshold and b.generation == 2,
+                    f"lifecycle (b): drift {psi} (gauge {gauge}) on the re-served rows, generation {b.generation}")
+            out["b_refit"]["reserved_score_psi"] = psi
+
+            # (c) rollbacks: the incumbent's scores stay bit for bit
+            b.auto_retrain = False
+            incumbent = b.model
+            drills = {}
+            for fault, outcome in (("fail_swap", "swap_failed"), ("corrupt_candidate", "validation_failed")):
+                t0 = time.perf_counter()
+                with faults.inject(**{fault: True}), managed():
+                    got = b.retrain(reason=fault)
+                drills[fault] = {"outcome": got, "wall_s": time.perf_counter() - t0,
+                                 "failed_gates": list(b.last_validation.failed_gates())}
+                require(got == outcome and b.model is incumbent and b.generation == 2,
+                        f"lifecycle (c): {fault} gave {got}, generation {b.generation}")
+                require(torch.equal(incumbent.score(X_big, fold_monitor=False), s_new),
+                        f"lifecycle (c): the incumbent's scores moved after {fault}")
+                require(not (tmp / "lc-b" / "gen-00003").exists(), f"lifecycle (c): {fault} left gen-00003")
+            out["c_rollbacks"] = drills
+
+            # (d) swap under load: four threads through a stalled swap
+            probe = batch(30, True)
+            old_scores = incumbent.score(probe, fold_monitor=False)
+            stall["on"] = True
+            results, errors = [], []
+            go = threading.Barrier(5)
+
+            def scorer():
+                try:
+                    go.wait(60)
+                    for _ in range(4):
+                        results.append(b.score(probe, return_generation=True))
+                except Exception as exc:  # surfaced below
+                    errors.append(repr(exc))
+
+            with managed():
+                require(b.retrain(reason="swap_under_load", wait=False) == "started", "lifecycle (d): no refit")
+                require(entered.wait(120), "lifecycle (d): the swap never reached its hook")
+                threads = [threading.Thread(target=scorer) for _ in range(4)]
+                for th in threads:
+                    th.start()
+                go.wait(60)
+                release.set()
+                for th in threads:
+                    th.join(120)
+                require(b.wait_retrain(timeout_s=300) and not errors and b.generation == 3,
+                        f"lifecycle (d): errors {errors}, state {b.state()}")
+            stall["on"] = False
+            new_scores = b.model.score(probe, fold_monitor=False)
+            require(not torch.equal(old_scores, new_scores), "lifecycle (d): the swap changed nothing")
+            torn = sum(not torch.equal(s, old_scores if g == 2 else new_scores) for s, g in results)
+            require(len(results) == 16 and torn == 0, f"lifecycle (d): {torn} of {len(results)} answers torn")
+            out["d_swap_under_load"] = {"answers": len(results), "by_generation": {
+                str(g): sum(1 for _, x in results if x == g) for g in (2, 3)},
+                "swap_lock_hold_ms": b.last_swap_lock_hold_s * 1e3}
+        finally:
+            release.set()
+            b.close()
+
+        # (e) sliding refresh of the EIF fixture
+        model_e = load_model(str(eif_dir))
+        require(isinstance(model_e, ExtendedIsolationForestModel), "lifecycle (e): not an EIF")
+        before = {f: getattr(model_e.forest, f).clone() for f in model_e.forest._fields}
+        with managed():
+            e = ModelManager(model_e, str(tmp / "lc-e"), **dict(knobs, mode="sliding"), background=False)
+        try:
+            t0 = time.perf_counter()
+            with managed():
+                for i in range(8):
+                    e.score(batch(i, True))
+                    if e.generation > 1:
+                        break
+            sliding_s = time.perf_counter() - t0
+            require(e.generation == 2 and e.last_retrain["outcome"] == "swapped", f"lifecycle (e): {e.state()}")
+            kept = model_e.forest.num_trees - 50
+            after = e.model.forest
+            for f in before:
+                require(torch.equal(getattr(after, f)[:kept], before[f][50:]), f"lifecycle (e): kept {f} differs")
+            window = e.last_retrain["window"]
+            k_bag, k_feat, k_grow = prng.split(prng.PRNGKey(e.last_retrain["seed"] & 0xFFFFFFFF, device=dev), 3)
+            Xw = torch.from_numpy(window).to(dev)
+            grown = _grow_block(per_tree_keys(k_grow, 50), Xw,
+                                bagged_indices(k_bag, len(window), model_e.num_samples, 50, model_e.params.bootstrap),
+                                feature_subsets(k_feat, window.shape[1], model_e.num_features, 50),
+                                height_limit(model_e.num_samples), model_e.extension_level)
+            for f in before:
+                require(torch.equal(getattr(after, f)[kept:], getattr(grown, f)), f"lifecycle (e): grown {f} differs")
+            out["e_sliding_eif"] = {"window_rows": int(window.shape[0]), "kept_trees": kept, "grown_trees": 50,
+                                    "wall_s": sliding_s}
+        finally:
+            e.close()
+
+        # (f) serve_model with lifecycle=True over HTTP
+        served_dir = tmp / "served"
+        shutil.copytree(FIXTURE / "model", served_dir)
+        serving_kw = dict(port=0, host="127.0.0.1",
+                          config=ServingConfig(max_queue_rows=1 << 17, request_timeout_s=SERVING_TIMEOUT_S),
+                          warm_batch_sizes=(1, LIFECYCLE_BATCH),
+                          manager_kwargs=dict(checkpoint_every=25, clock=clock.now, sleep=clock.sleep))
+        with managed():
+            handle = serve_model(str(served_dir), **serving_kw)
+            try:
+                manager = handle.manager
+                require(manager is not None and manager.model.device.type == "cuda", "lifecycle (f): not managed")
+                gen1 = manager.model
+                answers, generation = [], 1
+                t_http = time.perf_counter()
+                for i in range(10 ** 6):
+                    if time.perf_counter() - t_http > 2 * SERVING_TIMEOUT_S:
+                        break
+                    rows = batch(40 + i % (LIFECYCLE_TRAFFIC_BATCHES - 40), True)
+                    status, _, body = http_request(handle.url, "/score", json.dumps({"rows": rows.tolist()}).encode())
+                    require(status == 200, f"lifecycle (f): HTTP {status}: {body[:200]}")
+                    doc = json.loads(body)
+                    answers.append((rows, np.asarray(doc["scores"], np.float32), doc["generation"]))
+                    status, _, body = http_request(handle.url, "/healthz")
+                    if generation == 2:
+                        break  # this request came after /healthz named generation 2
+                    state = json.loads(body)["lifecycle"]
+                    generation = state["generation"]
+                    if state["retrain_in_progress"]:
+                        # a client with 20 ms of think time: (g) measures one
+                        # that posts without a pause
+                        time.sleep(0.02)
+                http_s = time.perf_counter() - t_http
+                require(generation == 2 and manager.wait_retrain(timeout_s=300),
+                        f"lifecycle (f): no swap over HTTP in {len(answers)} requests, "
+                        f"{http_s:.1f} s: {manager.state()}")
+                gen2 = manager.model
+            finally:
+                handle.close()
+        differing = sum(int((got != (gen1 if g == 1 else gen2).score(rows, fold_monitor=False).cpu().numpy()).sum())
+                        for rows, got, g in answers)
+        require(differing == 0 and {g for _, _, g in answers} == {1, 2},
+                f"lifecycle (f): {differing} served scores differ from their generation's model.score")
+        out["f_http"] = {"requests": len(answers), "seconds": http_s, "refit_wall_s": refit_wall_s(),
+                         "by_generation": {str(g): sum(1 for _, _, x in answers if x == g) for g in (1, 2)},
+                         "differing_scores": differing}
+
+        # (g) the same server under a client process that posts shifted
+        # batches back to back: the refit's wall under that load, or that it
+        # did not finish in LIFECYCLE_LOAD_S (it then finishes once the
+        # client stops)
+        load_dir, bodies, stop = tmp / "load", tmp / "bodies.jsonl", tmp / "stop"
+        shutil.copytree(FIXTURE / "model", load_dir)
+        bodies.write_bytes(b"\n".join(json.dumps({"rows": batch(40 + i, True).tolist()}).encode()
+                                       for i in range(LIFECYCLE_WINDOW_BATCHES)))
+        with managed():
+            handle = serve_model(str(load_dir), **serving_kw)
+            try:
+                manager = handle.manager
+                client = subprocess.Popen([sys.executable, "-c", LOAD_CLIENT, handle.url, str(bodies), str(stop)],
+                                          stdout=subprocess.PIPE, text=True)
+                try:
+                    # the refit's start and swap as this poll sees them (10 ms
+                    # apart): the event ring may drop them under this traffic
+                    t_load, t_start = time.perf_counter(), None
+                    while manager.generation == 1 and time.perf_counter() - t_load < LIFECYCLE_LOAD_S:
+                        if t_start is None and manager.retrain_in_progress:
+                            t_start = time.perf_counter()
+                        time.sleep(0.01)
+                    load_s = time.perf_counter() - t_load
+                    swapped_under_load = manager.generation == 2
+                    stop.touch()
+                    report = json.loads(client.communicate(timeout=SERVING_TIMEOUT_S)[0])
+                finally:
+                    if client.poll() is None:
+                        client.kill()
+                        client.wait()
+                t_stop = time.perf_counter()
+                require(manager.wait_retrain(timeout_s=300) and manager.generation == 2,
+                        f"lifecycle (g): no swap after the load: {manager.state()}")
+                after_stop_s = time.perf_counter() - t_stop
+            finally:
+                handle.close()
+        lat = report["latencies_s"]
+        require(report["not_ok"] == 0 and lat, f"lifecycle (g): {report['not_ok']} of {len(lat)} requests failed")
+        out["g_http_without_pause"] = {
+            "requests": len(lat), "load_s": load_s, "swapped_under_load": swapped_under_load,
+            "refit_started_s": None if t_start is None else t_start - t_load,
+            "refit_wall_s": t_load + load_s - t_start if swapped_under_load and t_start is not None else None,
+            "swap_after_client_stopped_s": None if swapped_under_load else after_stop_s,
+            "client_p50_ms": percentile_ms(lat, 50), "client_p99_ms": percentile_ms(lat, 99)}
+        out["launches"] = launches
+        require(launches["walk_sum"] > 0 and launches["ext_walk_sum"] > 0, f"lifecycle: launches {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "isoforest_tpu_torch").is_dir() or not FIXTURE.is_dir() or not EIF_FIXTURE.is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -2547,19 +2995,22 @@ def main() -> int:
     q16_phases(dev, X_m, X_big)
     out_of_core_phases(dev, X_m, y_m, X_big)
     serving_launches = serving_phases(X_m, X_big, smi)
+    lifecycle_launches = lifecycle_phases(dev, X_m, X_big, smi)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",
          "replaces": "isoforest_tpu/ops/pallas_walk.py:312", "launches": launches["walk"],
          "fit_launches": fit_launches, "serving_launches": serving_launches["walk_sum"],
+         "lifecycle_launches": lifecycle_launches["walk_sum"],
          "max_abs_err": max(walk_err, walk_small_err), "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
          "bound_ms": walk_bound, "bound_by": walk_by, "library_ms": None},
         {"name": "dense_mean", "route": "cuda", "source": "isoforest_tpu_torch/csrc/dense.cu",
          "replaces": "isoforest_tpu/ops/pallas_traversal.py:278", "launches": launches["dense"],
-         "serving_launches": serving_launches["dense_mean"],
+         "serving_launches": serving_launches["dense_mean"], "lifecycle_launches": lifecycle_launches["dense_mean"],
          "max_abs_err": dense_err, "ms": times["dense_ms"], "plain_ms": times["dense_plain_ms"],
          "bound_ms": dense_bound, "bound_by": dense_by, "library_ms": None},
-        *({**k, "serving_launches": serving_launches[k["name"]]} for k in ext_kernels),
+        *({**k, "serving_launches": serving_launches[k["name"]], "lifecycle_launches": lifecycle_launches[k["name"]]}
+          for k in ext_kernels),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

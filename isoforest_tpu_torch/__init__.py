@@ -28,10 +28,16 @@ metrics and events, :mod:`.resilience` the watchdog and the fault seams,
 :mod:`.io` model files and the out-of-core data plane (sharded sources,
 ``score_source``, ``read_scores``), :mod:`.serving` the online scoring service
 (``serving.serve_model``: ``POST /score`` on the telemetry daemon, requests
-coalesced into one ``model.score`` a flush).
+coalesced into one ``model.score`` a flush), :mod:`.lifecycle` the model
+lifecycle (``lifecycle.ModelManager``: drift-triggered refits, validated
+hot swaps; ``serve_model`` serves a model with a baseline through one) and
+:mod:`.sklearn` the scikit-learn adapter.
+
+    manager = lifecycle.ModelManager(served, "work_dir")  # refits on drift, swaps when the gates pass
+    scores = manager.score(X)
 """
 
-from . import io, resilience, serving, telemetry, tuning
+from . import io, lifecycle, resilience, serving, telemetry, tuning
 from .io import persistence
 from .models import ExtendedIsolationForest, ExtendedIsolationForestModel, IsolationForest, IsolationForestModel
 from .ops.traversal import score_matrix
@@ -52,4 +58,5 @@ def load_model(path: str, device=None, require_success: bool = True, verify="aut
 
 
 __all__ = ["ExtendedIsolationForest", "ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel",
-           "__version__", "io", "load_model", "resilience", "score_matrix", "serving", "telemetry", "tuning"]
+           "__version__", "io", "lifecycle", "load_model", "resilience", "score_matrix", "serving", "telemetry",
+           "tuning"]

@@ -1,11 +1,11 @@
 """Resilience of the port (``isoforest_tpu/resilience``): model-directory
 integrity (:mod:`.manifest`), fit checkpoints (:mod:`.checkpoint`), fault
 injection at the seams (:mod:`.faults`), the scoring watchdog and the peer
-heartbeats (:mod:`.watchdog`) and the degradation ladder
-(:mod:`.degradation`, only the rungs that hide no device and no kernel).
-The JAX package's retry layer is not ported."""
+heartbeats (:mod:`.watchdog`), the degradation ladder
+(:mod:`.degradation`, only the rungs that hide no device and no kernel) and
+retry with backoff (:mod:`.retry`)."""
 
-from . import checkpoint, faults, manifest, watchdog
+from . import checkpoint, faults, manifest, retry, watchdog
 from .checkpoint import CheckpointMismatchError, FitCheckpoint
 from .degradation import (
     LADDER,
@@ -18,11 +18,13 @@ from .degradation import (
     degrade,
     reset_degradations,
 )
+from .retry import DistributedTimeoutError, RetryError, RetryPolicy, backoff_schedule, retry_call
 from .watchdog import HeartbeatWriter, WatchdogTimeout, format_heartbeat_ages, peer_heartbeat_ages
 
 __all__ = [
-    "checkpoint", "faults", "manifest", "watchdog", "LADDER", "CheckpointMismatchError", "DegradationError",
-    "DegradationEvent", "DegradationReport", "FitCheckpoint", "HeartbeatWriter", "LoadReport", "WatchdogTimeout",
+    "checkpoint", "faults", "manifest", "retry", "watchdog", "LADDER", "CheckpointMismatchError",
+    "DegradationError", "DegradationEvent", "DegradationReport", "DistributedTimeoutError", "FitCheckpoint",
+    "HeartbeatWriter", "LoadReport", "RetryError", "RetryPolicy", "WatchdogTimeout", "backoff_schedule",
     "degradation_report", "degradations", "degrade", "format_heartbeat_ages", "peer_heartbeat_ages",
-    "reset_degradations",
+    "reset_degradations", "retry_call",
 ]

@@ -12,6 +12,15 @@ nothing is armed:
 * :func:`check_score_shard`, in ``io.outofcore.score_source``:
   ``kill_score_after_shard=<k>`` raises right after shard ``k``'s scores
   are sealed, the preemption a resumed scoring run exists for;
+* :func:`take_retrain_kill`, in the lifecycle manager's refit:
+  ``kill_retrain_after_block=<k>`` raises once right after refit block ``k``
+  is sealed (one-shot: the retry resumes from the seals);
+* :func:`candidate_corrupted`, in the lifecycle manager before validation:
+  ``corrupt_candidate`` poisons the candidate's first float plane;
+* :func:`check_validation`, in ``lifecycle.validate_candidate``:
+  ``fail_validation`` adds a failing gate;
+* :func:`check_swap`, in the lifecycle manager's swap, after the
+  candidate's durable save and before the flip: ``fail_swap`` raises;
 * :func:`check_strategy`, in ``score_matrix`` before a strategy runs:
   ``raise_strategy=<name>`` makes that strategy raise;
 * :func:`maybe_slow_collective`, the streaming executor's prelude inside the
@@ -51,6 +60,7 @@ FAULTS_ENV = "ISOFOREST_TPU_FAULTS"
 KNOWN_FAULTS = frozenset({
     "corrupt_avro", "truncate_data", "kill_fit_after_block", "kill_score_after_shard", "raise_strategy",
     "slow_collective", "break_pipeline_stage", "kill_replica_during_score", "wedge_replica_healthz",
+    "kill_retrain_after_block", "corrupt_candidate", "fail_validation", "fail_swap",
 })
 
 FaultValue = Union[bool, int, str]
@@ -155,6 +165,69 @@ def check_score_shard(shard_index: int) -> None:
         raise FaultInjectedError(
             f"injected fault: scoring killed after sealing shard {shard_index} "
             f"(kill_score_after_shard={value!r}) — resume with score_source(..., resume=True)"
+        )
+
+
+def take_retrain_kill(block_index: int) -> None:
+    """Consume a ``kill_retrain_after_block`` token when it names the refit
+    block just sealed. One-shot, unlike :func:`check_fit_block`: a real
+    preemption does not recur on every retry, and the manager's retry and
+    resume are what the seam exists to prove. A frame's value disarms in
+    place (a consumed frame falls through to an outer armed one, so stacked
+    frames model back-to-back kills); the environment's fires once a
+    process."""
+    global _ENV_RETRAIN_KILL_CONSUMED
+    for frame in reversed(_STACK):
+        if "kill_retrain_after_block" in frame:
+            value = frame["kill_retrain_after_block"]
+            if value is None or value is False:
+                continue
+            if int(value) == int(block_index):
+                frame["kill_retrain_after_block"] = False
+                raise FaultInjectedError(
+                    f"injected fault: background refit killed after sealing block {block_index} "
+                    f"(kill_retrain_after_block={value!r}) — the sealed blocks resume on the next attempt"
+                )
+            return
+    value = _parse_env().get("kill_retrain_after_block")
+    if value is None or value is False or _ENV_RETRAIN_KILL_CONSUMED:
+        return
+    if int(value) == int(block_index):
+        _ENV_RETRAIN_KILL_CONSUMED = True
+        raise FaultInjectedError(
+            f"injected fault: background refit killed after sealing block {block_index} "
+            f"(kill_retrain_after_block={value!r})"
+        )
+
+
+_ENV_RETRAIN_KILL_CONSUMED = False
+
+
+def candidate_corrupted() -> bool:
+    """True while ``corrupt_candidate`` is armed: the lifecycle manager then
+    poisons the refit candidate before validation, so the gates, not luck,
+    keep it off the scoring path."""
+    return active("corrupt_candidate")
+
+
+def check_validation() -> None:
+    """Raise :class:`FaultInjectedError` while ``fail_validation`` is armed:
+    the candidate's validation fails (the rollback drill)."""
+    if active("fail_validation"):
+        raise FaultInjectedError(
+            "injected fault: candidate validation forced to fail "
+            "(fail_validation) — the manager must roll back to the incumbent"
+        )
+
+
+def check_swap() -> None:
+    """Raise :class:`FaultInjectedError` while ``fail_swap`` is armed: a
+    fault after the candidate's durable save and before the in-memory flip;
+    the incumbent keeps serving."""
+    if active("fail_swap"):
+        raise FaultInjectedError(
+            "injected fault: model hot-swap forced to fail mid-swap "
+            "(fail_swap) — rolling back to the incumbent"
         )
 
 

@@ -9,13 +9,14 @@ ladder: 429 on queue overflow, 503 on a stale queue or a timeout, 500 on a
 scoring error (a stalled flush under ``score_timeout_s`` among them).
 
     from isoforest_tpu_torch.serving import serve_model
-    handle = serve_model("path/to/model", port=8080, lifecycle=False, warm_batch_sizes=(1, 64, 4096))
-    ...  # POST /score on handle.url
+    handle = serve_model("path/to/model", port=8080, warm_batch_sizes=(1, 64, 4096))
+    ...  # POST /score on handle.url; handle.manager refits on drift
     handle.close()
 
-The port has no lifecycle manager yet: ``lifecycle=False`` serves a model
-bare, and ``lifecycle=True`` on a model with a drift baseline raises
-:class:`NotImplementedError`.
+A model with a drift baseline is served through a lifecycle
+:class:`~isoforest_tpu_torch.lifecycle.ModelManager` (``lifecycle=True``,
+the default): drift on served rows triggers a refit, and a validated
+candidate is swapped in between flushes. ``lifecycle=False`` serves it bare.
 """
 
 from .coalescer import (

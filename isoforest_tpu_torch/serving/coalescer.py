@@ -118,7 +118,8 @@ class _Pending:
     """One enqueued request: its rows, arrival time, and the slot its
     flush fills in. ``flush_rows``/``flush_requests`` record the flush it
     rode in (surfaced in the HTTP response so a load generator can verify
-    coalescing actually happened)."""
+    coalescing actually happened); ``generation`` is the model generation
+    that scored the flush, when the scorer names one."""
 
     __slots__ = (
         "rows",
@@ -128,6 +129,7 @@ class _Pending:
         "error",
         "flush_rows",
         "flush_requests",
+        "generation",
         "ctx",
         "queue_wait_s",
         "flush_ctx",
@@ -141,6 +143,7 @@ class _Pending:
         self.error: Optional[BaseException] = None
         self.flush_rows = 0
         self.flush_requests = 0
+        self.generation = None
         # trace handoff: the submitter's span context (linked by the flush
         # span), the measured enqueue->drain wait, and the flush span's own
         # context (reported back so the request trace names its flush)
@@ -152,15 +155,16 @@ class _Pending:
 class MicroBatchCoalescer:
     """Shared request buffer with size-or-linger flushing (module doc).
 
-    ``score_fn(X) -> scores`` is called once per flush with the
-    concatenated ``[N, F]`` rows of every drained request; in serving it is
-    :meth:`~.service.ScoringService._score_batch`, which returns the
-    scores on the host.
+    ``score_fn(X) -> (scores, generation)`` is called once per flush with
+    the concatenated ``[N, F]`` rows of every drained request; in serving it
+    is :meth:`~.service.ScoringService._score_batch`, which returns the
+    scores on the host and the lifecycle generation that scored them (None
+    without a manager), which every request of the flush records.
     """
 
     def __init__(
         self,
-        score_fn: Callable[[np.ndarray], np.ndarray],
+        score_fn: Callable[[np.ndarray], Tuple[np.ndarray, Optional[int]]],
         *,
         max_batch_rows: int = 1024,
         max_linger_s: float = 0.002,
@@ -379,7 +383,8 @@ class MicroBatchCoalescer:
             for p in batch:
                 p.flush_ctx = flush_ctx
             try:
-                scores = np.asarray(self._score_fn(X))
+                scores, generation = self._score_fn(X)
+                scores = np.asarray(scores)
                 if scores.shape[0] != total:
                     raise ValueError(
                         f"score_fn returned {scores.shape[0]} scores for "
@@ -399,6 +404,7 @@ class MicroBatchCoalescer:
                 p.scores = scores[offsets[i] : offsets[i + 1]]
                 p.flush_rows = total
                 p.flush_requests = len(batch)
+                p.generation = generation
                 p.event.set()
 
     def pump(self) -> int:

@@ -9,7 +9,9 @@ wire is the JAX package's, byte for byte:
   ``{"rows": [[f, ...], ...]}`` (a batch). Response: ``{"scores": [...],
   "predictions": [...], "rows": n, "single": b, "generation": g,
   "flush_rows": m, "flush_requests": k}`` (``flush_*`` name the coalesced
-  flush the request rode in);
+  flush the request rode in; ``generation`` is the lifecycle generation
+  that scored that flush, where the JAX package reads the manager's
+  generation after it, which a swap can move on);
 * ``Content-Type: text/csv`` (or a ``?format=csv`` query): CSV feature rows
   in, an ``outlierScore`` CSV column out.
 
@@ -248,9 +250,8 @@ def _respond(
             "predictions": [float(p) for p in predictions],
             "rows": int(rows.shape[0]),
             "single": single,
-            "generation": (
-                service.manager.generation if service.manager is not None else None
-            ),
+            # the generation that scored this request's flush
+            "generation": pending.generation,
             "flush_rows": pending.flush_rows,
             "flush_requests": pending.flush_requests,
         }
@@ -297,8 +298,8 @@ def _finish(
 def handle_reload(service, body: bytes, headers, query: str = ""):
     """``POST /reload``: adopt a newer generation another process swapped
     into the shared work directory (``CURRENT.json``). Always 200 with the
-    state after the reload; a deployment without a lifecycle manager (every
-    one of the port's, until it has one) reports ``lifecycle: false`` and
+    state after the reload (``ModelManager.refresh_from_current``); a
+    deployment without a lifecycle manager reports ``lifecycle: false`` and
     reloads nothing."""
     manager = service.manager
     if manager is None:

@@ -16,13 +16,15 @@
   arrives, inside ``warmup_scope`` and ``compile_scope("serving.prewarm")``;
   :func:`serve_model` then calls ``mark_steady``, so a live request that
   builds a kernel or a table counts as a steady compile.
-* The ``manager=`` path is the JAX package's (a lifecycle manager's
-  ``score``); the port has no lifecycle manager yet, so :func:`serve_model`
-  serves a model bare and refuses ``lifecycle=True`` on a model that
-  carries a drift baseline.
+* With ``manager=`` (a :class:`~..lifecycle.ModelManager`) each flush is
+  one ``manager.score``: it scores on the generation the manager holds at
+  that moment, names it on the answer, folds the drift monitor and the
+  refit window, and may trigger a refit on the manager's thread; a swap
+  lands between flushes, never inside one.
 
-:func:`serve_model` is the one-call assembly: load, mount ``POST /score``
-on the telemetry daemon, prewarm, mark steady.
+:func:`serve_model` is the one-call assembly: load, wrap a model that has a
+drift baseline in a manager (``lifecycle=True``, the default), mount
+``POST /score`` on the telemetry daemon, prewarm, mark steady.
 """
 
 from __future__ import annotations
@@ -210,18 +212,19 @@ class ScoringService:
             return {"chunk_size": self._max_warm_bucket, "pipeline": True}
         return {}
 
-    def _score_quality_degraded(self, X: np.ndarray) -> np.ndarray:
+    def _score_quality_degraded(self, X: np.ndarray) -> Tuple[np.ndarray, Optional[int]]:
         """One flush under the quality rung: ``score_matrix`` of a point-in-
-        time model reference on the sliced subforest and/or the q16 plane.
-        It bypasses the manager's fold: degraded scores must not feed the
-        drift baseline."""
+        time model reference on the sliced subforest and/or the q16 plane,
+        as ``(scores, generation)`` (None without a manager). It bypasses
+        the manager's fold: degraded scores must not feed the drift
+        baseline."""
         from ..ops.traversal import score_matrix
         from ..utils.validation import UNKNOWN_TOTAL_NUM_FEATURES
 
         fraction, force_q16 = self._quality or (None, False)
         manager = self.manager
         model = manager.model if manager is not None else self._bare_model
-        generation = manager.generation if manager is not None else 0
+        generation = manager.generation if manager is not None else None
         forest, cache = self._degraded_forest(model, fraction)
         width = int(model.total_num_features)
         scores = score_matrix(
@@ -235,14 +238,18 @@ class ScoringService:
             timeout_s=self.config.score_timeout_s,
             **self._chunk_kwargs(int(X.shape[0])),
         )
-        set_span_attrs(model_id=self.model_id, generation=generation, degraded="quality",
+        set_span_attrs(model_id=self.model_id, generation=generation or 0, degraded="quality",
                        subsample_trees=fraction if fraction is not None else 1.0, q16=force_q16)
-        return _host(scores)
+        return _host(scores), generation
 
-    def _score_batch(self, X: np.ndarray) -> np.ndarray:
+    def _score_batch(self, X: np.ndarray) -> Tuple[np.ndarray, Optional[int]]:
         """One coalesced flush: a single scoring call on one model reference,
-        its scores copied to the host once. Through a manager the flush also
-        feeds the manager's monitor."""
+        its scores copied to the host once, as ``(scores, generation)``.
+        Through a manager the flush also feeds the manager's monitor, and
+        the generation is the one pinned with the model that scored, which
+        the answers name (a read of ``manager.generation`` after the flush
+        could name the next generation for this one's scores); without a
+        manager it is None."""
         if self._quality is not None:
             return self._score_quality_degraded(X)
         timeout_s = self.config.score_timeout_s
@@ -252,9 +259,9 @@ class ScoringService:
         if self.manager is not None:
             scores, generation = self.manager.score(X, timeout_s=timeout_s, return_generation=True, **kwargs)
             set_span_attrs(model_id=self.model_id, generation=generation)
-            return _host(scores)
+            return _host(scores), generation
         set_span_attrs(model_id=self.model_id, generation=0)
-        return _host(self._bare_model.score(X, timeout_s=timeout_s, **kwargs))
+        return _host(self._bare_model.score(X, timeout_s=timeout_s, **kwargs)), None
 
     def score(self, rows: np.ndarray) -> np.ndarray:
         """Blocking request-side score: enqueue, coalesce, hand back. Raises
@@ -408,11 +415,11 @@ def serve_model(
 
     1. load the model onto ``device`` (default: the card), class-dispatched;
     2. with ``lifecycle=True`` and a model that carries a drift baseline,
-       raise :class:`NotImplementedError`: the lifecycle manager is not
-       ported yet, and ``lifecycle=False`` serves the model bare. A model
-       without a baseline warns and serves bare, as in the JAX package.
-       ``work_dir`` and ``manager_kwargs`` are the managed path's (the JAX
-       package's signature);
+       wrap it in a :class:`~..lifecycle.ModelManager` on that device
+       (``work_dir``, default ``model_dir + ".lifecycle"``, and
+       ``manager_kwargs``), which serves the generation ``CURRENT.json``
+       there names, if any: a restarted process picks up the last swap. A
+       model without a baseline warns and serves bare;
     3. start the telemetry HTTP server and mount ``POST /score`` on it;
     4. pre-warm the serving buckets, then mark the process steady.
 
@@ -425,30 +432,32 @@ def serve_model(
 
     config = config or ServingConfig()
     model = load_model(model_dir, device=device)
+    manager = None
     if lifecycle and model.baseline is not None:
-        raise NotImplementedError(
-            f"serving: {model_dir} carries a drift baseline, and serving it with lifecycle=True needs the "
-            "lifecycle manager, which the port does not have yet; pass lifecycle=False to serve it bare "
-            "(no drift-triggered retraining)"
-        )
-    if lifecycle:
+        from ..lifecycle import ModelManager
+
+        manager = ModelManager(model, work_dir=work_dir or model_dir + ".lifecycle", **(manager_kwargs or {}))
+    elif lifecycle:
         logger.warning(
             "serving: %s has no _BASELINE.json sidecar — serving WITHOUT "
             "the lifecycle manager (no drift-triggered retraining); refit "
             "and re-save to enable it",
             model_dir,
         )
-    service = ScoringService(model=model, config=config)
+    service = ScoringService(model=None if manager is not None else model, manager=manager, config=config)
     server = _telemetry_serve(port=port, host=host)
     try:
         mount(server, service)
         service.prewarm(warm_batch_sizes)
     except BaseException:
         service.close()
+        if manager is not None:
+            manager.close()
         server.stop()
         raise
     # the warmed buckets are built: a build a live request pays for from here
     # on ticks isoforest_compiles_total{phase="steady"}
     mark_steady()
-    record_event("serving.start", port=server.port, model=model_dir, generation=0, lifecycle=False)
-    return ServingHandle(server, service)
+    record_event("serving.start", port=server.port, model=model_dir,
+                 generation=manager.generation if manager is not None else 0, lifecycle=manager is not None)
+    return ServingHandle(server, service, manager)

@@ -10,8 +10,10 @@ thread-safe):
   (:func:`..resilience.watchdog.peer_heartbeat_ages`): 200 while every
   peer's last beat is younger than ``stale_after_s``, 503 naming the stale
   peers once one goes quiet, plain process liveness with no heartbeat
-  directory; a mounted scoring service adds its ``serving`` section. The
-  ``lifecycle`` section is absent until the port has a lifecycle manager;
+  directory; a mounted scoring service adds its ``serving`` section, and a
+  live :class:`~isoforest_tpu_torch.lifecycle.ModelManager` its
+  ``lifecycle`` section (``ModelManager.state()``: generation, last swap,
+  refit in progress, debounce, window, outcomes), as on ``/snapshot``;
 * ``GET /snapshot``: the JSON snapshot (:func:`..export.snapshot`);
 * ``GET /trace?trace_id=<id>``: one captured trace as Chrome trace-event
   JSON (``&format=spans`` for the raw span documents), and
@@ -65,8 +67,8 @@ MAX_POST_BYTES = 64 << 20
 
 
 def _lifecycle_state():
-    """The live ModelManager's state, or None: the port has no lifecycle
-    manager yet, and the endpoint must keep serving telemetry either way."""
+    """The live ModelManager's state, or None when none is live; a failure
+    reading it must not take the endpoint's telemetry down with it."""
     try:
         # lazy import: lifecycle imports telemetry at module load
         from ..lifecycle import state_snapshot

@@ -43,3 +43,24 @@ def test_the_check_sees_the_forbidden_imports(tmp_path):
     )
     assert imported_roots(probe) & set(FORBIDDEN) == {"jax", "isoforest_tpu"}
     assert "isoforest_tpu_torch" in imported_roots(probe)
+
+
+# modules copied from numpy-only or stdlib-only modules of the JAX package:
+# each keeps its own copy, and imports nothing of the JAX package either
+STANDALONE_COPIES = ("lifecycle/__init__.py", "lifecycle/window.py", "lifecycle/validation.py",
+                     "lifecycle/manager.py", "resilience/retry.py", "sklearn.py")
+
+
+@pytest.mark.parametrize("name", STANDALONE_COPIES)
+def test_the_lifecycle_slices_modules_are_checked(name):
+    path = ROOT / "isoforest_tpu_torch" / name
+    assert path in SOURCES
+    assert not imported_roots(path) & set(FORBIDDEN)
+
+
+def test_chip_smoke_does_not_need_scikit_learn():
+    """The card's machine has not been shown to have scikit-learn: the smoke
+    imports neither it nor the adapter."""
+    source = (ROOT / "chip_smoke.py").read_text()
+    assert "sklearn" not in imported_roots(ROOT / "chip_smoke.py")
+    assert "isoforest_tpu_torch.sklearn" not in source and "import sklearn" not in source

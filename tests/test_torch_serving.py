@@ -1,8 +1,9 @@
 """The port's online scoring service (``isoforest_tpu_torch/serving``) on the
 CPU: the coalescer's policy, parity with ``model.score``, prewarm and the
 steady phase, the quality rung's table cache, the watchdog's typed 500,
-``serve_model``'s refusal to serve a baselined model without the lifecycle
-manager, the fault seams and the peer heartbeats.
+``serve_model``'s managed path (a baselined model served through a
+lifecycle manager, answering as the JAX package's managed server does), the
+fault seams and the peer heartbeats.
 
 No real sleeps: the size and linger policy runs threadless on a FakeClock
 (``pump()``). On the CPU torch's ``exp2`` rounds by vector position, so a
@@ -69,12 +70,17 @@ def _echo_score(X):
     return np.asarray(X, np.float64).sum(axis=1)
 
 
+def _echo_flush(X):
+    """``_echo_score`` as a flush scorer: ``(scores, generation)``, no generation."""
+    return _echo_score(X), None
+
+
 def _coalescer(fc, **kw):
     kw.setdefault("max_batch_rows", 8)
     kw.setdefault("max_linger_s", 0.010)
     kw.setdefault("max_queue_rows", 32)
     kw.setdefault("queue_deadline_s", 1.0)
-    return MicroBatchCoalescer(_echo_score, clock=fc.now, start=False, **kw)
+    return MicroBatchCoalescer(_echo_flush, clock=fc.now, start=False, **kw)
 
 
 # --------------------------------------------------------------------------- #
@@ -186,14 +192,14 @@ def test_reconfigure_takes_effect_and_returns_the_old_policy(data):
 
 def test_bad_knobs_are_refused():
     with pytest.raises(ValueError, match="max_batch_rows"):
-        MicroBatchCoalescer(_echo_score, max_batch_rows=0, start=False)
+        MicroBatchCoalescer(_echo_flush, max_batch_rows=0, start=False)
     with pytest.raises(ValueError, match="max_queue_rows"):
-        MicroBatchCoalescer(_echo_score, max_batch_rows=64, max_queue_rows=32, start=False)
+        MicroBatchCoalescer(_echo_flush, max_batch_rows=64, max_queue_rows=32, start=False)
     with pytest.raises(ValueError, match="queue_deadline_s"):
-        MicroBatchCoalescer(_echo_score, queue_deadline_s=0, start=False)
+        MicroBatchCoalescer(_echo_flush, queue_deadline_s=0, start=False)
     with pytest.raises(ValueError, match="exactly one"):
         ScoringService()
-    c = MicroBatchCoalescer(_echo_score, start=False)
+    c = MicroBatchCoalescer(_echo_flush, start=False)
     for shape in ((0, 4), (4,)):
         with pytest.raises(ValueError, match="non-empty"):
             c.submit(np.zeros(shape, np.float32))
@@ -375,16 +381,65 @@ def test_a_stalled_flush_answers_its_waiters_with_a_typed_500(model, data):
 
 
 # --------------------------------------------------------------------------- #
-# serve_model: no lifecycle manager yet
+# serve_model: the managed path
 # --------------------------------------------------------------------------- #
 
 
+def _post(url: str, path: str, body: bytes):
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=body, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.status, json.loads(resp.read().decode())
+
+
+def _get(url: str, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=60) as resp:
+        return resp.status, json.loads(resp.read().decode())
+
+
 @pytest.mark.parametrize("fixture", [STD, EIF], ids=["standard", "extended"])
-def test_lifecycle_true_on_a_baselined_model_is_refused(fixture):
+def test_lifecycle_true_on_a_baselined_model_serves_managed(fixture, tmp_path, data):
+    """``lifecycle=True`` (the default) wraps a baselined model in a
+    ``ModelManager`` on the given device; the answers, the ``/healthz``
+    lifecycle section and the ``serving.start`` event are the JAX package's
+    managed server's (scores within 2e-6 of the committed JAX walk scores,
+    and of the JAX server's within its own gap to them)."""
+    from isoforest_tpu import serving as jax_serving
+    from isoforest_tpu_torch.lifecycle import ModelManager
+
     assert (fixture / "_BASELINE.json").exists()
-    with pytest.raises(NotImplementedError, match="lifecycle=False"):
-        serve_model(str(fixture), device="cpu", lifecycle=True)
-    assert telemetry.active_server() is None, "nothing is left serving"
+    rows = data[:8]
+    body = json.dumps({"rows": rows.tolist()}).encode()
+    # 64-row buckets: the CPU's plain EIF walk costs about 1 ms a row
+    ours = serve_model(str(fixture), device="cpu", work_dir=str(tmp_path / "ours"),
+                       config=ServingConfig(linger_ms=0.0, batch_rows=64))
+    try:
+        assert isinstance(ours.manager, ModelManager) and ours.service.manager is ours.manager
+        assert ours.manager.model.device.type == "cpu" and ours.manager.generation == 1
+        start = telemetry.get_events(kind="serving.start")[-1].fields
+        assert start["lifecycle"] is True and start["generation"] == 1
+        theirs = jax_serving.serve_model(str(fixture), work_dir=str(tmp_path / "theirs"),
+                                         config=jax_serving.ServingConfig(linger_ms=0.0, batch_rows=64))
+        try:
+            (status, got), (jstatus, want) = _post(ours.url, "/score", body), _post(theirs.url, "/score", body)
+            assert status == jstatus == 200 and sorted(got) == sorted(want)
+            assert got["generation"] == want["generation"] == 1 and got["rows"] == want["rows"] == 8
+            jax_walk = np.load(fixture.parent / ("jax_scores.npy" if fixture == STD else "jax_walk_scores.npy"))[:8]
+            got_s, want_s = np.asarray(got["scores"]), np.asarray(want["scores"])
+            assert np.abs(got_s - jax_walk).max() <= 2e-6
+            assert np.abs(got_s - want_s).max() <= np.abs(want_s - jax_walk).max() + 2e-6
+            (status, health), (_, jax_health) = _get(ours.url, "/healthz"), _get(theirs.url, "/healthz")
+            assert status == 200 and health["lifecycle"] == jax_health["lifecycle"]
+            assert health["lifecycle"]["window_rows"] == 8 and health["serving"]["lifecycle"] is True
+            assert health["serving"]["generation"] == jax_health["serving"]["generation"] == 1
+        finally:
+            theirs.close()
+    finally:
+        ours.close()
+    assert ours.manager.closed and telemetry.active_server() is None
 
 
 def test_a_model_without_a_baseline_warns_and_serves_bare(tmp_path, caplog, data):

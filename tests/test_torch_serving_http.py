@@ -8,13 +8,17 @@ the port's server over a real socket: ``serve_model(device="cpu",
 lifecycle=False)`` over both committed fixtures answers within 2e-6 of the
 committed JAX scores, and as ``model.score`` of the same rows does; the
 telemetry endpoints answer; the fault seams and ``/healthz``'s heartbeats
-work on the wire. Every socket wait has a timeout.
+work on the wire. The managed path (``lifecycle=True``) answers ``POST
+/score`` and ``POST /reload`` as the JAX package's managed server does,
+before and after a generation is pushed into the work directory. Every
+socket wait has a timeout.
 """
 
 from __future__ import annotations
 
 import http.client
 import json
+import os
 import pathlib
 import threading
 import urllib.error
@@ -248,6 +252,58 @@ def test_serve_model_answers_within_2e6_of_the_jax_scores(kind, mammography):
             np.testing.assert_array_max_ulp(got, model.score(rows).numpy(), maxulp=1)
         assert np.abs(got - jax_scores[n_json:n_json + n_csv]).max() <= 2e-6
         assert telemetry.compile_counts()["by_phase"]["steady"] == 0
+
+
+def test_the_managed_path_answers_score_and_reload_as_the_jax_package_does(mammography, tmp_path):
+    """Both packages' ``serve_model(lifecycle=True)`` over the standard
+    fixture, each with its own work directory: ``/score`` answers with the
+    same keys and generation (scores within 2e-6), ``/reload`` with the same
+    body before a push and after one (a sealed generation directory and
+    ``CURRENT.json`` written into each work directory), and the next answer
+    names generation 2 in both."""
+    import shutil
+
+    fixture = FIXTURES["standard"] / "model"
+    rows = mammography[:16]
+    body = json.dumps({"rows": rows.tolist()}).encode()
+    ours = serving.serve_model(str(fixture), device="cpu", work_dir=str(tmp_path / "ours"),
+                               config=serving.ServingConfig(linger_ms=0.0, request_timeout_s=TIMEOUT_S))
+    theirs = jax_serving.serve_model(str(fixture), work_dir=str(tmp_path / "theirs"),
+                                     config=jax_serving.ServingConfig(linger_ms=0.0, request_timeout_s=TIMEOUT_S))
+    try:
+        assert ours.manager is not None and theirs.manager is not None
+
+        def both(path, payload=b"{}"):
+            got, want = _request(ours.url, path, payload), _request(theirs.url, path, payload)
+            assert got[0] == want[0] == 200 and got[1]["Content-Type"] == want[1]["Content-Type"]
+            return json.loads(got[2]), json.loads(want[2])
+
+        def same_answer(generation):
+            got, want = both("/score", body)
+            assert sorted(got) == sorted(want) and got["generation"] == want["generation"] == generation
+            assert np.abs(np.asarray(got["scores"]) - np.asarray(want["scores"])).max() <= 2e-6
+
+        same_answer(1)
+        got, want = both("/reload")
+        assert got == want == {"reloaded": False, "lifecycle": True, "generation": 1}
+        for handle in (ours, theirs):
+            work = handle.manager.work_dir
+            shutil.copytree(str(fixture), os.path.join(work, "gen-00002"))
+            with open(os.path.join(work, "CURRENT.json"), "w") as fh:
+                json.dump({"generation": 2, "path": os.path.join(work, "gen-00002"), "swapped_unix_s": 5.0}, fh)
+        got, want = both("/reload")
+        assert got == want == {"reloaded": True, "lifecycle": True, "generation": 2}
+        assert ours.manager.model.device.type == "cpu"
+        same_answer(2)
+        got, want = both("/reload")
+        assert got == want == {"reloaded": False, "lifecycle": True, "generation": 2}
+        health, jax_health = (json.loads(_request(h.url, "/healthz")[2]) for h in (ours, theirs))
+        for key in ("model_path",):
+            health["lifecycle"].pop(key), jax_health["lifecycle"].pop(key)
+        assert health["lifecycle"] == jax_health["lifecycle"]
+    finally:
+        theirs.close()
+        ours.close()
 
 
 def test_the_telemetry_endpoints_answer(mammography):
