@@ -261,11 +261,41 @@ shifted by 3 standard deviations per feature):
     ``model.score`` at 1 and 4,096 rows idle and during a background
     refit, and the phase's launches.
 
+Then the multi-device layer (``isoforest_tpu_torch/parallel``) on the one
+card:
+
+32. parallel: (a) ``create_mesh()``, a 1 x 1 mesh over ``cuda:0``: both
+    estimators' ``fit(X_big, mesh=)`` equal the plain card fit node for
+    node, threshold exactly; with every launch counter at 0 just before and
+    read just after, ``model.score(X_big, mesh=)`` of both fixtures with
+    ``walk`` and ``dense`` and ``sharded_score`` of 65,536 rows through a
+    seeded F = k = 274 forest with ``dense``, each bit for bit the
+    unsharded call, K1-K5 each launched; (b) eight logical shards of the
+    card (2 x 4): sharded growth of 100 trees (padded to 104, sliced)
+    bitwise the plain growth, ``sharded_score`` bit for bit and
+    ``sharded_score_2d`` within 2e-6 for both fixtures and strategies; four
+    (2 x 2): the train step at the north star's shape (10,000,000
+    KDDCup99-HTTP-like rows, F = 3, 100 trees, ``maxSamples`` 256,
+    contamination 0.004), exact and with ``contamination_error`` 0.0004,
+    its forest node for node ``fit(X, mesh=)``'s, its scores bit for bit
+    that model's ``score(X, mesh=, strategy="walk")``, both thresholds
+    within the rank contract; (c) processes sharing the card, started
+    together: two ranks over gloo (a 1 x 2 mesh, the train step on 1M rows
+    equal to one process's 1 x 2 run exactly), an NCCL world of one (its
+    all-gather and all-reduce on the card, equal to the 1 x 1 run), and two
+    ranks of which one dies before joining (the survivor exits with a
+    typed ``DistributedTimeoutError`` naming it within its 10 s deadline);
+    every rank under a host-side timeout; then times (host clock,
+    synchronised, medians of 7) of ``fit``, ``score`` and
+    ``sharded_score_2d`` on 1 x 1 and 2 x 4 meshes beside the plain calls,
+    and of the train step on 1 x 1 and 2 x 2, with the ``nvidia-smi`` line.
+
 Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
 with its launches in the 1M-row fit and ``ext_walk_sum`` with its launches
 in the 1M-row EIF fit, ``fit_launches``; each with its launches through
-phase 30, ``serving_launches``, and through phase 31,
-``lifecycle_launches``), the ``nvidia-smi`` name and
+phase 30, ``serving_launches``, through phase 31,
+``lifecycle_launches``, and through phase 32's counted mesh scoring,
+``parallel_launches``), the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises and exits non-zero. The run's autotune tables live in
 ``build/`` (git-ignored), fresh each run, so every run probes cold. With
@@ -2751,6 +2781,291 @@ def lifecycle_phases(dev, X_m, X_big, smi: str) -> dict:
     return launches
 
 
+PARALLEL_ROWS = 10_000_000  # the north star's rows (SURVEY.md:388)
+PARALLEL_WORLD_ROWS = 1_000_000  # (c)'s rows, each of two ranks sharing the card
+# the north star's deployment (bench.py:800-880): KDDCup99-HTTP-like rows,
+# F = 3, 100 trees, maxSamples 256, contamination 0.004
+PARALLEL_STEP = dict(num_features_total=3, num_trees=100, num_samples=256, num_features=3, contamination=0.004)
+PARALLEL_SKETCH_ERROR = 0.0004
+PARALLEL_DEADLINE_S = 10.0  # (c)'s dying world: the survivor's deadline
+PARALLEL_HOST_TIMEOUT_S = 300.0  # (c)'s hard bound on every rank process
+EXIT_RANK_TIMEOUT = 43
+EXIT_RANK_DIED_EARLY = 44
+
+# (c)'s rank, a process of its own: brings up a world (gloo over
+# initialize_distributed, or NCCL for a world of one), builds a mesh of its
+# one cuda:0 entry, runs the train step and rank 0 saves its arrays; under a
+# deadline watchdog with peer heartbeats, exiting 43 on a typed timeout
+PARALLEL_RANK = r"""
+import os, sys, traceback
+root, rank, world, port, out, backend, hb_dir, deadline_s, rows, die_early, device = sys.argv[1:12]
+sys.path.insert(0, root)
+rank, world, rows = int(rank), int(world), int(rows)
+import numpy as np, torch
+import chip_smoke
+from isoforest_tpu_torch.resilience.retry import DistributedTimeoutError
+from isoforest_tpu_torch.resilience.watchdog import (HeartbeatWriter, WatchdogTimeout, format_heartbeat_ages,
+                                                     peer_heartbeat_ages, run_with_deadline)
+beat = HeartbeatWriter(hb_dir, f"proc{rank}", interval_s=0.5).start()
+beat.beat()
+if die_early == "1":
+    beat.stop()
+    print(f"rank {rank}: dying before joining", flush=True)
+    os._exit(chip_smoke.EXIT_RANK_DIED_EARLY)
+
+def body():
+    import torch.distributed as dist
+    from isoforest_tpu_torch.parallel import create_mesh, initialize_distributed
+    if world > 1:
+        initialize_distributed(f"127.0.0.1:{port}", world, rank, backend=backend)
+    else:  # the bring-up is a no-op for one process: a world of one directly
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    mesh = create_mesh([torch.device(device)])
+    out_arrays = chip_smoke.parallel_train_steps(mesh, rows)
+    out_arrays["backend"] = np.array(mesh.backend)
+    if rank == 0:
+        np.savez(out, **out_arrays)
+    dist.barrier()
+    dist.destroy_process_group()
+
+def peers():
+    return format_heartbeat_ages(peer_heartbeat_ages(hb_dir), stale_after_s=2.0)
+
+try:
+    run_with_deadline(body, float(deadline_s), describe=f"rank {rank} distributed body", on_timeout=peers)
+except WatchdogTimeout as exc:
+    print(f"rank {rank}: DistributedTimeoutError: {DistributedTimeoutError(str(exc), deadline_s=float(deadline_s))}",
+          flush=True)
+    os._exit(chip_smoke.EXIT_RANK_TIMEOUT)
+except BaseException:
+    traceback.print_exc()
+    os._exit(1)
+beat.stop()
+os._exit(0)
+"""
+
+
+def parallel_rows(rows: int, device):
+    """``rows`` seeded KDDCup99-HTTP-like rows on ``device``, the same in
+    every process."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(kdd_http_like_rows(np.random.default_rng(SEED + 32), rows)).to(device)
+
+
+def parallel_train_steps(mesh, rows: int, X=None) -> dict:
+    """The train step over ``mesh`` on ``rows`` seeded KDDCup99-HTTP-like
+    rows (the north star's deployment; ``X``, when given, holds them),
+    exact and with the sketch; numpy arrays (forest fields, scores,
+    thresholds)."""
+    import numpy as np
+
+    from isoforest_tpu_torch.ops import prng
+    from isoforest_tpu_torch.parallel import make_train_step
+
+    X = parallel_rows(rows, mesh.first_device) if X is None else X
+    exact = make_train_step(mesh, num_rows=rows, **PARALLEL_STEP)(prng.PRNGKey(SEED), X)
+    sketch = make_train_step(mesh, num_rows=rows, contamination_error=PARALLEL_SKETCH_ERROR,
+                             **PARALLEL_STEP)(prng.PRNGKey(SEED), X)
+    out = {f"forest_{f}": getattr(exact.forest, f).cpu().numpy() for f in exact.forest._fields}
+    out.update(scores=exact.scores.cpu().numpy(), threshold=np.float32(exact.threshold.item()),
+               sketch_scores=sketch.scores.cpu().numpy(), sketch_threshold=np.float32(sketch.threshold.item()))
+    return out
+
+
+def spawn_ranks(world: int, backend: str, rows: int, work: pathlib.Path, die_early_rank=None, device="cuda:0"):
+    """Start ``world`` rank processes of :data:`PARALLEL_RANK`, each with a
+    mesh of one ``device`` entry, on a free localhost port; returns
+    ``(procs, out_path, start)``."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    work.mkdir(parents=True, exist_ok=True)
+    out, hb = work / "rank0.npz", work / "heartbeats"
+    deadline = PARALLEL_DEADLINE_S if die_early_rank is not None else PARALLEL_HOST_TIMEOUT_S - 60
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PARALLEL_RANK, str(ROOT), str(r), str(world), str(port), str(out), backend, str(hb),
+         str(deadline), str(rows), "1" if r == die_early_rank else "0", device],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        for r in range(world)]
+    return procs, out, time.perf_counter()
+
+
+def collect_ranks(procs, start: float) -> tuple:
+    """Wait for every rank under the host's hard timeout, killing them all
+    past it; ``(exit codes, logs, seconds)``. No rank outlives the call."""
+    logs = []
+    try:
+        for p in procs:
+            left = max(1.0, PARALLEL_HOST_TIMEOUT_S - (time.perf_counter() - start))
+            logs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return [p.returncode for p in procs], logs, time.perf_counter() - start
+
+
+def parallel_phases(dev, X_m, X_big, smi: str) -> dict:
+    """Phase 32: the multi-device layer on the one card (module docstring).
+    Returns the launches of (a)'s mesh scoring by kernel name."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import ExtendedIsolationForest, IsolationForest, load_model
+    from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
+    from isoforest_tpu_torch.ops import prng
+    from isoforest_tpu_torch.ops.bagging import ensemble_draws
+    from isoforest_tpu_torch.ops.quantile import quantile_rank_error
+    from isoforest_tpu_torch.ops.traversal import score_matrix
+    from isoforest_tpu_torch.ops.tree_growth import grow_forest
+    from isoforest_tpu_torch.parallel import (create_mesh, make_train_step, sharded_grow_forest, sharded_score,
+                                              sharded_score_2d)
+    from isoforest_tpu_torch.testing import random_extended_forest, rows
+    from isoforest_tpu_torch.utils.math import height_limit
+
+    t_phase = time.perf_counter()
+    line = {"phase": "parallel"}
+
+    def same_forest(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # (a) a 1 x 1 mesh over the card
+    mesh11 = create_mesh()
+    require(mesh11.shape == {"data": 1, "trees": 1} and mesh11.first_device == torch.device("cuda", 0),
+            f"create_mesh() on one card: {mesh11}")
+    fits = {}
+    for kind, cls in (("standard", IsolationForest), ("extended", ExtendedIsolationForest)):
+        plain = cls(contamination=0.02, random_seed=1).fit(X_big, baseline=False)
+        sharded = cls(contamination=0.02, random_seed=1).fit(X_big, baseline=False, mesh=mesh11)
+        require(same_forest(plain.forest, sharded.forest), f"(a) {kind} fit(mesh=) differs from the plain fit")
+        require(plain.outlier_score_threshold == sharded.outlier_score_threshold, f"(a) {kind} threshold differs")
+        fits[kind] = {"threshold": sharded.outlier_score_threshold}
+    models = {"standard": load_model(str(FIXTURE / "model")), "extended": load_model(str(EIF_FIXTURE / "model"))}
+    rng = np.random.default_rng(SEED + 32)
+    f5 = extended_forest_from_arrays(*random_extended_forest(rng, 100, 8, 274, 274, split_p=1.0)).to(dev)
+    X5 = rows(rng, HIGH_DIM_ROWS, 274)
+    want = {(kind, s): m.score(X_big, strategy=s) for kind, m in models.items() for s in ("walk", "dense")}
+    want["high_dim", "dense"] = score_matrix(f5, X5, 256, strategy="dense")
+    zero_launch_counts()
+    got = {(kind, s): m.score(X_big, strategy=s, mesh=mesh11) for kind, m in models.items() for s in ("walk", "dense")}
+    got["high_dim", "dense"] = sharded_score(mesh11, f5, X5, 256, "dense")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    require(all(v > 0 for v in launches.values()), f"(a) a kernel did not launch through the mesh: {launches}")
+    for key, s in got.items():
+        require(torch.equal(s, want[key]), f"(a) score(mesh=) {key} differs from the unsharded scores")
+    line["a"] = {"fits": fits, "launches": launches, "bitwise": sorted("/".join(k) for k in got)}
+
+    # (b) logical shards on the one card
+    mesh24 = create_mesh([dev] * 8)
+    require(mesh24.shape == {"data": 2, "trees": 4}, f"8 entries: {mesh24.shape}")
+    Xd = torch.from_numpy(X_big).to(dev)
+    tree_keys, bag, fidx = ensemble_draws(prng.PRNGKey(1, device=dev), Xd, num_samples=256, num_trees=100,
+                                          bootstrap=False, num_features=Xd.shape[1])
+    h = height_limit(256)
+    require(same_forest(sharded_grow_forest(mesh24, tree_keys, Xd, bag, fidx, h),
+                        grow_forest(tree_keys, Xd, bag, fidx, h)), "(b) sharded growth (T = 100 -> 104) differs")
+    b = {"growth_bitwise": True}
+    zero_launch_counts()
+    for kind, m in models.items():
+        for s in ("walk", "dense"):
+            require(torch.equal(sharded_score(mesh24, m.forest, X_big, m.num_samples, s, cache=m._cache),
+                                want[kind, s]), f"(b) sharded_score {kind}/{s} differs")
+            gap = float((sharded_score_2d(mesh24, m.forest, X_big, m.num_samples, s, cache=m._cache)
+                         - want[kind, s]).abs().max())
+            require(gap <= 2e-6, f"(b) sharded_score_2d {kind}/{s} off by {gap}")
+            b[f"2d_{kind}_{s}_max_abs"] = gap
+    torch.cuda.synchronize()
+    b["launches_2x4"] = launch_counts()
+
+    mesh22 = create_mesh([dev] * 4)
+    X_kdd = parallel_rows(PARALLEL_ROWS, dev)  # 120 MB, copied once
+    step = parallel_train_steps(mesh22, PARALLEL_ROWS, X_kdd)
+    kdd_model = IsolationForest(num_estimators=100, max_samples=256.0, contamination=0.004,
+                                random_seed=SEED).fit(X_kdd, baseline=False, mesh=mesh22)
+    for f in kdd_model.forest._fields:
+        require(np.array_equal(step[f"forest_{f}"], getattr(kdd_model.forest, f).cpu().numpy()),
+                f"(b) train step forest field {f} differs from fit(mesh=)")
+    kdd_scores = kdd_model.score(X_kdd, strategy="walk", mesh=mesh22)
+    require(np.array_equal(step["scores"], kdd_scores.cpu().numpy()), "(b) train step scores differ from score(mesh=)")
+    require(np.array_equal(step["sketch_scores"], step["scores"]), "(b) the sketch step's scores differ")
+    exact_err = quantile_rank_error(kdd_scores, float(step["threshold"]), 1.0 - 0.004)
+    sketch_err = quantile_rank_error(kdd_scores, float(step["sketch_threshold"]), 1.0 - 0.004)
+    require(exact_err == 0 and float(step["threshold"]) == kdd_model.outlier_score_threshold,
+            f"(b) exact threshold: rank error {exact_err}")
+    require(sketch_err <= PARALLEL_SKETCH_ERROR * PARALLEL_ROWS, f"(b) sketch threshold: rank error {sketch_err}")
+    b["train_step"] = {"rows": PARALLEL_ROWS, "mesh": mesh22.shape, "threshold": float(step["threshold"]),
+                       "sketch_threshold": float(step["sketch_threshold"]), "sketch_rank_error": sketch_err}
+    line["b"] = b
+    del kdd_scores, kdd_model, step
+
+    # (c) processes sharing the card: a gloo world of two, an NCCL world of
+    # one, and a world of two whose rank 1 dies before joining, all at once
+    work = ROOT / "build" / f"parallel_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    runs = {"gloo": spawn_ranks(2, "gloo", PARALLEL_WORLD_ROWS, work / "gloo"),
+            "nccl": spawn_ranks(1, "nccl", PARALLEL_WORLD_ROWS, work / "nccl"),
+            "dying": spawn_ranks(2, "gloo", PARALLEL_WORLD_ROWS, work / "dying", die_early_rank=1)}
+    mesh12 = create_mesh([dev] * 2)
+    ref12 = parallel_train_steps(mesh12, PARALLEL_WORLD_ROWS)
+    ref11 = parallel_train_steps(mesh11, PARALLEL_WORLD_ROWS)
+    c = {}
+    for name, (procs, out, start) in runs.items():
+        codes, logs, seconds = collect_ranks(procs, start)
+        c[name] = {"exit_codes": codes, "seconds": seconds}
+        if name == "dying":
+            require(codes == [EXIT_RANK_TIMEOUT, EXIT_RANK_DIED_EARLY], f"(c) dying world exits {codes}:\n{logs[0][-3000:]}")
+            require("DistributedTimeoutError" in logs[0] and "proc1" in logs[0], f"(c) survivor's log:\n{logs[0][-3000:]}")
+            require(seconds < PARALLEL_DEADLINE_S + 60, f"(c) the typed timeout took {seconds} s")
+            continue
+        require(codes == [0] * len(procs), f"(c) {name} world exits {codes}:\n{logs[0][-3000:]}")
+        res = dict(np.load(out))
+        ref = ref12 if name == "gloo" else ref11
+        require(str(res.pop("backend")) == name, f"(c) {name} world ran another backend")
+        for key, value in ref.items():
+            require(np.array_equal(res[key], value), f"(c) {name} world: {key} differs from one process's")
+        c[name]["bitwise_to_one_process"] = True
+    shutil.rmtree(work, ignore_errors=True)
+    line["c"] = c
+
+    # timings: host clock around synchronised calls, medians of 7, sharded
+    # against unsharded on the same card
+    def median_s(fn, reps: int = 7) -> float:
+        fn()
+        return statistics.median(synced(fn)[1] for _ in range(reps))
+
+    std = models["standard"]
+    times = {
+        "fit_s": {"plain": median_s(lambda: IsolationForest(contamination=0.02, random_seed=1).fit(X_big, baseline=False)),
+                  "mesh_1x1": median_s(lambda: IsolationForest(contamination=0.02, random_seed=1).fit(
+                      X_big, baseline=False, mesh=mesh11)),
+                  "mesh_2x4": median_s(lambda: IsolationForest(contamination=0.02, random_seed=1).fit(
+                      X_big, baseline=False, mesh=mesh24))},
+        "score_walk_1m_host_s": {"plain": median_s(lambda: std.score(X_big, strategy="walk")),
+                                 "mesh_1x1": median_s(lambda: std.score(X_big, strategy="walk", mesh=mesh11)),
+                                 "mesh_2x4": median_s(lambda: std.score(X_big, strategy="walk", mesh=mesh24))},
+        "score_2d_walk_1m_host_s": {"mesh_2x4": median_s(lambda: sharded_score_2d(
+            mesh24, std.forest, X_big, std.num_samples, "walk", cache=std._cache))},
+        "train_step_10m_s": {
+            "mesh_1x1": median_s(lambda: make_train_step(mesh11, num_rows=PARALLEL_ROWS, **PARALLEL_STEP)(
+                prng.PRNGKey(SEED), X_kdd)),
+            "mesh_2x2": median_s(lambda: make_train_step(mesh22, num_rows=PARALLEL_ROWS, **PARALLEL_STEP)(
+                prng.PRNGKey(SEED), X_kdd))},
+    }
+    line["times"] = times
+    line["nvidia_smi"] = smi
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "isoforest_tpu_torch").is_dir() or not FIXTURE.is_dir() or not EIF_FIXTURE.is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -2996,20 +3311,23 @@ def main() -> int:
     out_of_core_phases(dev, X_m, y_m, X_big)
     serving_launches = serving_phases(X_m, X_big, smi)
     lifecycle_launches = lifecycle_phases(dev, X_m, X_big, smi)
+    parallel_launches = parallel_phases(dev, X_m, X_big, smi)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",
          "replaces": "isoforest_tpu/ops/pallas_walk.py:312", "launches": launches["walk"],
          "fit_launches": fit_launches, "serving_launches": serving_launches["walk_sum"],
-         "lifecycle_launches": lifecycle_launches["walk_sum"],
+         "lifecycle_launches": lifecycle_launches["walk_sum"], "parallel_launches": parallel_launches["walk_sum"],
          "max_abs_err": max(walk_err, walk_small_err), "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
          "bound_ms": walk_bound, "bound_by": walk_by, "library_ms": None},
         {"name": "dense_mean", "route": "cuda", "source": "isoforest_tpu_torch/csrc/dense.cu",
          "replaces": "isoforest_tpu/ops/pallas_traversal.py:278", "launches": launches["dense"],
          "serving_launches": serving_launches["dense_mean"], "lifecycle_launches": lifecycle_launches["dense_mean"],
+         "parallel_launches": parallel_launches["dense_mean"],
          "max_abs_err": dense_err, "ms": times["dense_ms"], "plain_ms": times["dense_plain_ms"],
          "bound_ms": dense_bound, "bound_by": dense_by, "library_ms": None},
-        *({**k, "serving_launches": serving_launches[k["name"]], "lifecycle_launches": lifecycle_launches[k["name"]]}
+        *({**k, "serving_launches": serving_launches[k["name"]], "lifecycle_launches": lifecycle_launches[k["name"]],
+           "parallel_launches": parallel_launches[k["name"]]}
           for k in ext_kernels),
     ]})
     print(smi, flush=True)

@@ -45,11 +45,13 @@ class ExtendedIsolationForest(_ParamSetters):
 
     def fit(self, data, nonfinite: str = "warn", subsample_trees=None, checkpoint_dir: Optional[str] = None,
             checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,
-            block_callback=None) -> "ExtendedIsolationForestModel":
+            block_callback=None, *, mesh=None) -> "ExtendedIsolationForestModel":
         """Fit on an ``[N, F]`` tensor, array or DataFrame; the same knobs
-        as :meth:`IsolationForest.fit`, checkpoints and baseline included."""
+        as :meth:`IsolationForest.fit`, checkpoints, baseline and ``mesh``
+        included."""
         return _fit_impl(self, data, extended=True, nonfinite=nonfinite, subsample_trees=subsample_trees,
-                         checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback), baseline=baseline)
+                         checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback), baseline=baseline,
+                         mesh=mesh)
 
     def fit_from_sample(self, X_sample, bag, nonfinite: str = "warn", checkpoint_dir: Optional[str] = None,
                         checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,

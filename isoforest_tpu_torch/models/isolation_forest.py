@@ -22,6 +22,13 @@ threshold, ``fit`` captures the drift baseline (``baseline=True``, unless
 training rows, scored through the walk kernel; ``enable_monitoring`` then
 folds every scored batch into a :class:`~..telemetry.monitor.ScoreMonitor`.
 
+``fit(X, mesh=...)`` grows the trees over a device mesh
+(:mod:`..parallel`: each shard grows a slab, the slabs are gathered) and
+thresholds through row-sharded scoring; ``score``, ``warmup`` and
+``transform`` take a ``mesh`` too. The forest, scores and threshold equal
+the unsharded fit's bit for bit. ``mesh`` is a keyword: the JAX package's
+``fit(data, mesh, ...)`` takes it second.
+
 ``fit_source`` fits a sharded on-disk source out of core: one pass through
 the streamed sampler on the host (:class:`~..ops.bagging.StreamedBagger`),
 then ``fit_from_sample`` of its sample; the sample, and so the forest, is
@@ -54,7 +61,12 @@ from ..telemetry.spans import span as _telemetry_span
 from ..utils.device import resolve_device
 from ..utils.math import height_limit
 from ..utils.params import IsolationForestParams, resolve_extension_level, resolve_params
-from ..utils.validation import UNKNOWN_TOTAL_NUM_FEATURES, extract_features, logger
+from ..utils.validation import (
+    UNKNOWN_TOTAL_NUM_FEATURES,
+    extract_features,
+    logger,
+    validate_feature_vector_size,
+)
 
 
 # Fit volume, by model family ("standard" or "extended"), counted once a
@@ -137,33 +149,41 @@ def _capture_fit_baseline(model, X: torch.Tensor) -> None:
         model.baseline = capture_baseline(scores, sub, total_rows=n)
 
 
-def _grow_block(tree_keys, X: torch.Tensor, bag, fidx, height: int, extension_level):
-    """Grow the trees of these draws: standard, or EIF at ``extension_level``."""
+def _grow_block(tree_keys, X: torch.Tensor, bag, fidx, height: int, extension_level, mesh=None):
+    """Grow the trees of these draws: standard, or EIF at ``extension_level``;
+    over ``mesh``'s shards when one is given."""
+    if mesh is not None:
+        from ..parallel.sharded import sharded_grow_extended_forest, sharded_grow_forest
+
+        if extension_level is None:
+            return sharded_grow_forest(mesh, tree_keys, X, bag, fidx, height)
+        return sharded_grow_extended_forest(mesh, tree_keys, X, bag, fidx, height, extension_level)
     if extension_level is None:
         return grow_forest(tree_keys, X, bag, fidx, height)
     return grow_extended_forest(tree_keys, X, bag, fidx, height, extension_level)
 
 
 def _grow(key, X: torch.Tensor, *, params, resolved, height: int, extension_level, checkpoint, bag=None,
-          sampler_sha256=None):
+          sampler_sha256=None, mesh=None):
     """The forest of either estimator and its checkpoint: the ensemble's
     draws from ``key`` (``bag`` replaces the bagging draw of a fit from a
     sample), then growth in one call, or in sealed blocks when
     ``checkpoint = (dir, every, resume, callback)`` names a directory
-    (:func:`_blockwise_grow`; ``sampler_sha256`` joins its fingerprint)."""
+    (:func:`_blockwise_grow`; ``sampler_sha256`` joins its fingerprint);
+    over ``mesh``'s shards when one is given."""
     draws = ensemble_draws(key, X, num_samples=resolved.num_samples, num_trees=params.num_estimators,
                            bootstrap=params.bootstrap, num_features=resolved.num_features, bag=bag)
     checkpoint_dir, checkpoint_every, resume, block_callback = checkpoint
     if checkpoint_dir is None:
         tree_keys, bag, fidx = draws
-        return _grow_block(tree_keys, X, bag, fidx, height, extension_level), None
+        return _grow_block(tree_keys, X, bag, fidx, height, extension_level, mesh), None
     return _blockwise_grow(checkpoint_dir, resume, checkpoint_every, X, draws, params=params, resolved=resolved,
                            height=height, extension_level=extension_level, on_block=block_callback,
-                           sampler_sha256=sampler_sha256)
+                           sampler_sha256=sampler_sha256, mesh=mesh)
 
 
 def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, X: torch.Tensor, draws, *, params,
-                    resolved, height: int, extension_level=None, on_block=None, sampler_sha256=None):
+                    resolved, height: int, extension_level=None, on_block=None, sampler_sha256=None, mesh=None):
     """Growth of either estimator in checkpointed blocks of trees:
     ``(forest, FitCheckpoint)``.
 
@@ -173,7 +193,7 @@ def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, X: torc
     fingerprint hashes the host copy of ``X``, one device-to-host copy per
     fit. ``on_block(index, start, stop, resumed)`` runs after each block is
     durable. ``sampler_sha256`` (an out-of-core fit's sample hash) joins the
-    fingerprint.
+    fingerprint. With ``mesh`` each block grows over its shards.
     """
     from ..ops.ext_growth import ExtendedForest
     from ..resilience import checkpoint as ckpt
@@ -209,7 +229,7 @@ def _blockwise_grow(checkpoint_dir: str, resume: bool, checkpoint_every, X: torc
         if arrays is None:
             trees = slice(start, stop)
             with _telemetry_span("fit.grow_block", block=index, trees=stop - start):
-                block = _grow_block(tree_keys[trees], X, bag[trees], fidx[trees], height, extension_level)
+                block = _grow_block(tree_keys[trees], X, bag[trees], fidx[trees], height, extension_level, mesh)
                 arrays = {field: getattr(block, field).cpu().numpy() for field in forest_cls._fields}
                 state.seal_block(index, start, stop, arrays)
             faults.check_fit_block(index)  # a kill lands after the seal
@@ -277,8 +297,12 @@ class IsolationForest(_ParamSetters):
 
     def fit(self, data, nonfinite: str = "warn", subsample_trees=None, checkpoint_dir: Optional[str] = None,
             checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,
-            block_callback=None) -> "IsolationForestModel":
-        """Fit on an ``[N, F]`` tensor, array or DataFrame. ``nonfinite`` is
+            block_callback=None, *, mesh=None) -> "IsolationForestModel":
+        """Fit on an ``[N, F]`` tensor, array or DataFrame. With ``mesh`` (a
+        :class:`~..parallel.mesh.Mesh`) the trees grow over its shards and
+        the threshold pass scores row-sharded; the model lives on the mesh's
+        first local device, and its forest, scores and threshold equal the
+        unsharded fit's bit for bit. ``nonfinite`` is
         the NaN/inf policy (``"warn"``, ``"raise"``, ``"allow"``);
         ``subsample_trees`` grows only that many (int) or that share
         (float) of ``numEstimators`` trees, and the model records the
@@ -294,7 +318,8 @@ class IsolationForest(_ParamSetters):
         block is durable. ``baseline`` (and ``ISOFOREST_TPU_BASELINE``)
         captures the drift baseline the model saves as ``_BASELINE.json``."""
         return _fit_impl(self, data, extended=False, nonfinite=nonfinite, subsample_trees=subsample_trees,
-                         checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback), baseline=baseline)
+                         checkpoint=(checkpoint_dir, checkpoint_every, resume, block_callback), baseline=baseline,
+                         mesh=mesh)
 
     def fit_from_sample(self, X_sample, bag, nonfinite: str = "warn", checkpoint_dir: Optional[str] = None,
                         checkpoint_every: Optional[int] = None, resume: bool = False, baseline: bool = True,
@@ -343,15 +368,15 @@ class IsolationForest(_ParamSetters):
 
 
 def _grow_and_threshold(p, X, resolved, extended: bool, key, checkpoint, baseline: bool, counted_rows: int,
-                        bag=None, sampler_sha256=None) -> "IsolationForestModel":
+                        bag=None, sampler_sha256=None, mesh=None) -> "IsolationForestModel":
     """The model of either estimator: grow its forest (:func:`_grow`), count
     ``counted_rows`` and the trees, then threshold it on ``X`` and capture
-    its baseline."""
+    its baseline; over ``mesh`` when one is given."""
     h = height_limit(resolved.num_samples)
 
     def grow(level):
         return _grow(key, X, params=p, resolved=resolved, height=h, extension_level=level, checkpoint=checkpoint,
-                     bag=bag, sampler_sha256=sampler_sha256)
+                     bag=bag, sampler_sha256=sampler_sha256, mesh=mesh)
 
     common = dict(params=p, num_samples=resolved.num_samples, num_features=resolved.num_features,
                   total_num_features=int(X.shape[1]))
@@ -370,19 +395,20 @@ def _grow_and_threshold(p, X, resolved, extended: bool, key, checkpoint, baselin
     _FIT_TREES_TOTAL.inc(p.num_estimators, model=kind)
     model.fit_checkpoint = fit_checkpoint
     model.finalize_scoring()
-    _compute_and_set_threshold(model, X)
+    _compute_and_set_threshold(model, X, mesh=mesh)
     if baseline and _baseline_env_enabled():
         _capture_fit_baseline(model, X)
     return model
 
 
 def _fit_impl(est, data, *, extended: bool, nonfinite: str, subsample_trees, checkpoint,
-              baseline: bool) -> "IsolationForestModel":
-    """``fit`` of both estimators on one device: bags, feature subsets and
-    growth from one key (in one call, or in checkpointed blocks when
-    ``checkpoint = (dir, every, resume, callback)`` names a directory),
-    then the threshold and the baseline."""
-    dev = resolve_device(est.device)
+              baseline: bool, mesh=None) -> "IsolationForestModel":
+    """``fit`` of both estimators on one device, or over ``mesh`` (on its
+    first local device): bags, feature subsets and growth from one key (in
+    one call, or in checkpointed blocks when ``checkpoint = (dir, every,
+    resume, callback)`` names a directory), then the threshold and the
+    baseline."""
+    dev = mesh.first_device if mesh is not None else resolve_device(est.device)
     p = est.params
     if subsample_trees is not None:
         effective = _resolve_subsample_trees(subsample_trees, p.num_estimators)
@@ -395,7 +421,8 @@ def _fit_impl(est, data, *, extended: bool, nonfinite: str, subsample_trees, che
         "resolved params: numSamples=%d numFeatures=%d (of %d rows x %d features)",
         resolved.num_samples, resolved.num_features, total_rows, total_feats,
     )
-    return _grow_and_threshold(p, X, resolved, extended, _seed_key(p, dev), checkpoint, baseline, total_rows)
+    return _grow_and_threshold(p, X, resolved, extended, _seed_key(p, dev), checkpoint, baseline, total_rows,
+                               mesh=mesh)
 
 
 def _require_absolute_max_samples(params) -> int:
@@ -472,7 +499,7 @@ def _fit_source_impl(est, source, *, extended: bool, chunk_rows, nonfinite: str,
                                  source_rows=sample.total_rows)
 
 
-def _compute_and_set_threshold(model: "IsolationForestModel", X: torch.Tensor) -> None:
+def _compute_and_set_threshold(model: "IsolationForestModel", X: torch.Tensor, mesh=None) -> None:
     """Contamination thresholding (SharedTrainLogic.scala:175-242): with
     contamination 0 the threshold stays -1 and every label is 0; else it is
     the ``1 - contamination`` quantile of the training scores within
@@ -480,11 +507,12 @@ def _compute_and_set_threshold(model: "IsolationForestModel", X: torch.Tensor) -
     The pass names the walk: the JAX package resolves ``auto`` here, but a
     tuned ``dense`` could move an EIF fit's threshold (K3 and K4 split tied
     rows differently), so the fit stays threshold-exact whatever the
-    autotuner's table holds."""
+    autotuner's table holds; with ``mesh`` the walk runs row-sharded, to
+    the same scores bit for bit."""
     p = model.params
     if p.contamination == 0.0:
         return
-    scores = model.score(X, nonfinite="allow", strategy="walk")  # the policy was applied at fit
+    scores = model.score(X, nonfinite="allow", strategy="walk", mesh=mesh)  # the policy was applied at fit
     thr = contamination_threshold(scores, p.contamination, p.contamination_error)
     model.set_outlier_score_threshold(thr)
     observed = observed_contamination(scores, thr)
@@ -610,6 +638,8 @@ class IsolationForestModel:
         timeout_s: Optional[float] = None,
         strict: bool = False,
         fold_monitor: bool = True,
+        *,
+        mesh=None,
     ) -> torch.Tensor:
         """Outlier scores ``2^(-E[h(x)]/c(n))`` of an ``[N, F]`` tensor, array
         or DataFrame, as a float32 tensor on the model's device, inside a
@@ -629,7 +659,13 @@ class IsolationForestModel:
         ``"q16"`` on a forest outside its fences, into
         :class:`~..resilience.degradation.DegradationError`. With a
         drift monitor attached the batch is folded into it after scoring,
-        unless ``fold_monitor=False``."""
+        unless ``fold_monitor=False``.
+
+        With ``mesh`` the rows are sharded over its shards, the forest
+        replicated (:func:`~..parallel.sharded.sharded_score`; ``strategy``
+        from the pool ``"auto"``, ``"walk"``, ``"dense"``), bit for bit the
+        unsharded scores, returned on the mesh's first local device; no
+        watchdog is armed (``timeout_s`` and ``strict`` do not apply)."""
         X, _ = extract_features(X, self.params.features_col, nonfinite="allow")
         expected = (
             self.total_num_features
@@ -637,33 +673,44 @@ class IsolationForestModel:
             else None
         )
         with _telemetry_span("model.score", rows=int(X.shape[0])):
-            scores = score_matrix(
+            if mesh is not None:
+                from ..parallel.sharded import sharded_score
+
+                if expected is not None:
+                    validate_feature_vector_size(int(X.shape[1]), expected)
+                scores = sharded_score(mesh, self.forest, X, self.num_samples, score_strategy=strategy,
+                                       pipeline=pipeline, chunk_rows=chunk_size, cache=self._cache,
+                                       nonfinite=nonfinite)
+            else:
+                scores = score_matrix(
                 self.forest,
                 X,
                 self.num_samples,
-                strategy=strategy,
-                chunk_size=chunk_size,
-                expected_features=expected,
-                device=self.device,
-                cache=self._cache,
-                nonfinite=nonfinite,
-                strict=strict,
-                timeout_s=timeout_s,
-                pipeline=pipeline,
-            )
+                    strategy=strategy,
+                    chunk_size=chunk_size,
+                    expected_features=expected,
+                    device=self.device,
+                    cache=self._cache,
+                    nonfinite=nonfinite,
+                    strict=strict,
+                    timeout_s=timeout_s,
+                    pipeline=pipeline,
+                )
         monitor = self._monitor
         if monitor is not None and fold_monitor:
             monitor.observe(scores, X)
         return scores
 
-    def warmup(self, batch_sizes=(1024,), strategy: str = "auto", width: Optional[int] = None
+    def warmup(self, batch_sizes=(1024,), strategy: str = "auto", width: Optional[int] = None, *, mesh=None
                ) -> "IsolationForestModel":
         """Build what a first request would otherwise pay for: the kernels,
         the kernel tables and, for ``"auto"``, the autotuner's decision of
         each batch size's power-of-two bucket (the buckets ``score`` keys
         on), by scoring a zero matrix of each bucket from the host. Warm
-        with the strategy serving will use. A model that does not record
-        ``totalNumFeatures`` needs ``width``. Returns self."""
+        with the strategy serving will use, and with the ``mesh`` it will
+        score through (its devices' tables and its sharded buckets). A
+        model that does not record ``totalNumFeatures`` needs ``width``.
+        Returns self."""
         if width is None:
             if self.total_num_features == UNKNOWN_TOTAL_NUM_FEATURES:
                 raise ValueError(
@@ -675,10 +722,16 @@ class IsolationForestModel:
 
         for bucket in sorted({batch_bucket(n) for n in batch_sizes}):
             dummy = torch.zeros((bucket, max(int(width), 1)), dtype=torch.float32)
-            score_matrix(self.forest, dummy, self.num_samples, strategy=strategy, device=self.device,
-                         cache=self._cache)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            if mesh is not None:
+                from ..parallel.sharded import sharded_score
+
+                sharded_score(mesh, self.forest, dummy, self.num_samples, score_strategy=strategy, cache=self._cache)
+            else:
+                score_matrix(self.forest, dummy, self.num_samples, strategy=strategy, device=self.device,
+                             cache=self._cache)
+        for dev in {self.device, *(mesh.flat_devices if mesh is not None else ())}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return self
 
     def degradations(self):
@@ -741,15 +794,16 @@ class IsolationForestModel:
             return (scores >= self.outlier_score_threshold).to(torch.float64)
         return torch.zeros_like(scores, dtype=torch.float64)
 
-    def transform(self, data, nonfinite: str = "warn"):
+    def transform(self, data, nonfinite: str = "warn", *, mesh=None):
         """Score and label columns, named by the params' ``scoreCol`` and
         ``predictionCol`` (IsolationForestModel.scala:116-151): a DataFrame
         comes back as a copy with both columns appended, and is refused if
-        it already has either; a tensor or array gives a dict of tensors."""
+        it already has either; a tensor or array gives a dict of tensors.
+        ``mesh`` scores row-sharded (:meth:`score`)."""
         p = self.params
         X, frame = extract_features(data, p.features_col, output_cols=(p.score_col, p.prediction_col),
                                     nonfinite="allow")
-        scores = self.score(X, nonfinite=nonfinite)
+        scores = self.score(X, nonfinite=nonfinite, mesh=mesh)
         labels = self.predict(scores)
         if frame is None:
             return {p.score_col: scores.to(torch.float64), p.prediction_col: labels}

@@ -17,6 +17,13 @@ explicitly (:func:`_flush`), and a NaN bin goes where XLA's float-to-int
 convert puts it, bin 0, by an explicit ``torch.where`` rather than by a
 cast whose result differs between devices. The same bits come out on the
 CPU and on the card.
+
+:func:`histogram_quantile_sharded` is the JAX package's
+``histogram_quantile_jit`` over row-sharded scores (the fused train step's
+sketch, ``parallel/train_step.py``): the same passes in float32 device
+arithmetic, each rank reading only its own rows; the global min and max are
+two all-reduces, each pass's ``[num_bins + 2]`` counts one SUM all-reduce,
+and the snap to an element one MIN all-reduce (:mod:`..parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -112,6 +119,50 @@ def histogram_quantile(
             break
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=scores.device)
     return float(torch.where(flushed >= _f32(lo, scores), flushed, inf).min())
+
+
+def histogram_quantile_sharded(mesh, scores: torch.Tensor, num_rows: int, q: float, num_bins: int = 8192,
+                               eps: float = 1e-3, max_passes: int = 24) -> float:
+    """The refined histogram quantile of ``histogram_quantile_jit`` over a
+    score column sharded across the ranks of ``mesh``: ``scores`` holds this
+    rank's rows (all of them in one process), ``num_rows`` is the column's
+    length. Returns an element of the column whose rank is within ``eps *
+    num_rows`` of ``ceil(q * num_rows)``: every pass histograms the
+    ``[lo, hi]`` window, narrows to the target bin widened by one bin on
+    each side (the outer edges stay exact), and the loop ends after
+    ``max_passes``, once the window holds at most ``eps * num_rows`` scores,
+    or below float32 resolution; then the smallest score ``>= lo``."""
+    from ..parallel.mesh import reduce_shards
+
+    scores = scores.to(torch.float32)
+    n = int(num_rows)
+    target = max(int(math.ceil(np.float32(q * n))), 1)
+    rank_budget = max(int(eps * n), 1)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=scores.device)
+    lo = reduce_shards(mesh, [scores.min() if scores.numel() else inf], "min")
+    hi = reduce_shards(mesh, [scores.max() if scores.numel() else -inf], "max")
+    lo, hi = np.float32(lo.item()), np.float32(hi.item())
+    tiny = np.float32(_FLOAT32_TINY)
+    bin_count, passes = n, 0
+    while passes < max_passes and bin_count > rank_budget and \
+            (hi - lo) > max(abs(lo), abs(hi), tiny) * np.float32(2.0 ** -24):
+        width = max(np.float32(hi - lo), tiny)
+        # device scalars: a division stays a division on the card
+        rel = torch.floor((scores - _f32(float(lo), scores)) / _f32(float(width), scores) * num_bins)
+        bins = torch.where(rel.isnan(), 0.0, rel.clamp(-1, num_bins)).to(torch.int64)
+        # the last bin is right-closed, including scores that round up to it
+        bins = torch.where(scores <= _f32(float(hi), scores), bins.clamp(max=num_bins - 1), bins)
+        counts = torch.bincount(bins + 1, minlength=num_bins + 2)
+        counts = reduce_shards(mesh, [counts], "sum").cpu().numpy()
+        cum = counts[0] + np.cumsum(counts[1 : num_bins + 1])
+        idx = min(max(int(np.searchsorted(cum, target)), 0), num_bins - 1)
+        lo_i, hi_i = max(idx - 1, 0), min(idx + 1, num_bins - 1)
+        new_lo = lo if lo_i == 0 else np.float32(lo + np.float32(lo_i) * width / np.float32(num_bins))
+        new_hi = hi if hi_i == num_bins - 1 else np.float32(lo + np.float32(hi_i + 1) * width / np.float32(num_bins))
+        bin_count = int(cum[hi_i] - (cum[lo_i - 1] if lo_i > 0 else counts[0]))
+        lo, hi, passes = new_lo, new_hi, passes + 1
+    snap = torch.where(scores >= _f32(float(lo), scores), scores, inf).min() if scores.numel() else inf
+    return float(reduce_shards(mesh, [snap], "min"))
 
 
 def contamination_threshold(

@@ -116,13 +116,15 @@ def default_chunk_rows(platform: str = "cuda") -> int:
     return PLATFORM_DEFAULT_CHUNK.get(platform, 1 << 18)
 
 
-def resolve_chunk_rows(chunk_rows: Optional[int] = None, platform: str = "cuda") -> int:
+def resolve_chunk_rows(chunk_rows: Optional[int] = None, platform: str = "cuda", multiple: int = 1) -> int:
     """The executor's chunk policy: explicit ``chunk_rows`` > the environment
-    > the platform's default."""
+    > the platform's default, rounded down to a ``multiple`` (a mesh's shard
+    count: sharded scoring splits each chunk over the shards), and at least
+    one ``multiple``."""
     rows = chunk_rows if chunk_rows is not None else default_chunk_rows(platform)
     if rows < 1:
         raise ValueError(f"chunk_rows must be >= 1, got {rows}")
-    return int(rows)
+    return max(int(multiple), int(rows) - int(rows) % int(multiple))
 
 
 # device -> probed availability of pinned memory and a copy stream; the
@@ -230,7 +232,10 @@ class StreamingExecutor:
     ``execute(X)`` returns all N in one device tensor without a
     synchronisation (but the non-finite count's read). ``prelude`` runs
     inside the watchdog's scope before the first chunk (the
-    ``slow_collective`` seam).
+    ``slow_collective`` seam). With ``nonfinite_counts`` (a list), each
+    execution appends its device count of non-finite values to it, unread,
+    instead of reporting it under ``nonfinite``: the caller reports the
+    total of several executions once (sharded scoring).
     """
 
     def __init__(
@@ -245,6 +250,7 @@ class StreamingExecutor:
         describe: str = "streamed scoring",
         prelude: Optional[Callable[[], None]] = None,
         nonfinite: str = "allow",
+        nonfinite_counts: Optional[list] = None,
     ) -> None:
         if chunk_rows < 1:
             raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
@@ -258,6 +264,7 @@ class StreamingExecutor:
         self._describe = describe
         self._prelude = prelude
         self._nonfinite = nonfinite
+        self._nonfinite_counts = nonfinite_counts
 
     def execute(self, X: torch.Tensor) -> torch.Tensor:
         """Path lengths of every row of ``X`` (on the host or on
@@ -299,7 +306,9 @@ class StreamingExecutor:
                 bad = count_non_finite(xc) if check else None
             else:
                 out, bad = self._run_streamed(X, n, check)
-        if bad is not None:
+        if bad is not None and self._nonfinite_counts is not None:
+            self._nonfinite_counts.append(bad)
+        elif bad is not None:
             report_non_finite(int(bad), self._nonfinite)
         return out
 

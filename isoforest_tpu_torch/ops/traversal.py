@@ -383,6 +383,43 @@ def scoring_tables(forest, strategy: str, device, cache: dict):
     return tables
 
 
+def _path_length_executor(forest, strategy: str, *, device: torch.device, cache: dict, rows: int,
+                          chunk_rows: int, pipeline: Optional[bool], site: str, timeout_s: Optional[float],
+                          nonfinite: str, nonfinite_counts: Optional[list]) -> StreamingExecutor:
+    """The executor of one named strategy's kernel over ``forest`` (on
+    ``device``), its tables built into ``cache`` under ``(strategy,
+    device)`` before it returns, so the caller times the scoring alone."""
+    faults.check_strategy(strategy)
+    _, run = (_EXT_KERNELS if isinstance(forest, ExtendedForest) else _KERNELS)[strategy]
+    with _resources.compile_scope(site, key=f"rows={rows}"):
+        tables = scoring_tables(forest, strategy, device, cache)
+    return StreamingExecutor(
+        lambda chunk_rows: run(chunk_rows, tables), chunk_rows, device=device, site=site,
+        streaming=pipeline_enabled(pipeline), timeout_s=timeout_s, describe=f"scoring strategy {strategy!r}",
+        prelude=lambda: faults.maybe_slow_collective(strategy), nonfinite=nonfinite,
+        nonfinite_counts=nonfinite_counts,
+    )
+
+
+def mean_path_lengths(forest, X: torch.Tensor, strategy: str, *, device: torch.device, cache: dict,
+                      chunk_rows: int, pipeline: Optional[bool] = None, site: str = "score_matrix",
+                      timeout_s: Optional[float] = None, nonfinite: str = "allow",
+                      nonfinite_counts: Optional[list] = None) -> torch.Tensor:
+    """Mean path length of every row of ``X`` (validated ``[N, F]`` rows on
+    the host or on ``device``) through the kernel of one named strategy,
+    ``f32[N]`` on ``device``, streamed in chunks of ``chunk_rows`` under
+    ``site``: the kernel path of :func:`score_matrix`, which sharded scoring
+    runs once a shard (:mod:`..parallel.sharded`). ``forest`` lies on
+    ``device``; its tables are built once into ``cache`` under ``(strategy,
+    device)``. ``nonfinite_counts``: as
+    :class:`~.streaming.StreamingExecutor`'s."""
+    return _path_length_executor(
+        forest, strategy, device=device, cache=cache, rows=int(X.shape[0]), chunk_rows=chunk_rows,
+        pipeline=pipeline, site=site, timeout_s=timeout_s, nonfinite=nonfinite,
+        nonfinite_counts=nonfinite_counts,
+    ).execute(X)
+
+
 def score_matrix(
     forest,
     X,
@@ -467,14 +504,9 @@ def score_matrix(
                                    detail=f"strategy='q16' does not cover this forest ({reason}); "
                                           "scoring with the walk strategy instead")
                 _set_span_attrs(strategy=strategy)
-        faults.check_strategy(strategy)
-        _, run = (_EXT_KERNELS if isinstance(forest, ExtendedForest) else _KERNELS)[strategy]
-        with _resources.compile_scope("score_matrix", key=f"rows={n}"):
-            tables = scoring_tables(forest, strategy, dev, cache)
-        executor = StreamingExecutor(
-            lambda chunk_rows: run(chunk_rows, tables), chunk, device=dev, site="score_matrix",
-            streaming=pipeline_enabled(pipeline), timeout_s=timeout_s, describe=f"scoring strategy {strategy!r}",
-            prelude=lambda: faults.maybe_slow_collective(strategy), nonfinite=nonfinite,
+        executor = _path_length_executor(
+            forest, strategy, device=dev, cache=cache, rows=n, chunk_rows=chunk, pipeline=pipeline,
+            site="score_matrix", timeout_s=timeout_s, nonfinite=nonfinite, nonfinite_counts=None,
         )
         t0 = time.perf_counter()
         path_lengths = executor.execute(X)

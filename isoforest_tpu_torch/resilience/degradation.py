@@ -21,7 +21,10 @@ reason, logged once per reason until :func:`reset_degradations`, counted on
   default, the walk;
 * ``q16_unsupported``: ``strategy="q16"`` on a forest outside the quantized
   plane's fences runs the walk kernel; the JAX package runs its gather
-  walk, which the port has only as a test reference.
+  walk, which the port has only as a test reference;
+* ``shard_pin_ineligible``: an ``ISOFOREST_TPU_STRATEGY`` pin outside the
+  sharded pool (``walk``, ``dense``) is ignored by sharded scoring
+  (:mod:`..parallel.sharded`), which resolves its own default.
 
 Under ``strict=True`` :func:`degrade` raises :class:`DegradationError`
 instead of taking the rung; ``pipeline_fallback`` is strict-exempt (its
@@ -79,6 +82,11 @@ LADDER: Dict[str, str] = {
         "scores, within cross-strategy f32 tolerance of the gather walk an "
         "eligible q16 run equals bitwise, so this rung changes the kernel, "
         "never the decisions"
+    ),
+    "shard_pin_ineligible": (
+        "ineligible ISOFOREST_TPU_STRATEGY pin inside sharded scoring -> "
+        "the sharded pool's default (walk/dense): scores within "
+        "cross-strategy f32 tolerance"
     ),
     "pipeline_fallback": (
         "staging unavailable for the streaming executor -> synchronous "

@@ -36,7 +36,10 @@ nothing is armed:
   process;
 * :func:`maybe_wedge_healthz`, in the same server's ``GET /healthz``:
   ``wedge_replica_healthz[=<seconds>]`` stalls the answer, the replica
-  that is alive but does not answer.
+  that is alive but does not answer;
+* :func:`take_distributed_init_failure`, before each attempt of
+  ``parallel.initialize_distributed``: ``fail_distributed_init[=<n>]``
+  fails the first n bring-up attempts (default 1), consumed across calls.
 
 :class:`FakeClock` is the injectable clock of the serving tests: its
 sleeps only advance virtual time.
@@ -60,7 +63,7 @@ FAULTS_ENV = "ISOFOREST_TPU_FAULTS"
 KNOWN_FAULTS = frozenset({
     "corrupt_avro", "truncate_data", "kill_fit_after_block", "kill_score_after_shard", "raise_strategy",
     "slow_collective", "break_pipeline_stage", "kill_replica_during_score", "wedge_replica_healthz",
-    "kill_retrain_after_block", "corrupt_candidate", "fail_validation", "fail_swap",
+    "kill_retrain_after_block", "corrupt_candidate", "fail_validation", "fail_swap", "fail_distributed_init",
 })
 
 FaultValue = Union[bool, int, str]
@@ -327,6 +330,43 @@ def maybe_wedge_healthz(clock: Callable[[], float] = time.monotonic,
     start = clock()
     while active("wedge_replica_healthz") and clock() - start < limit:
         sleep(0.01)
+
+
+# the environment-armed fail_distributed_init tokens consumed in this process
+# (a spawned worker reads the environment afresh, as a flaky bring-up would)
+_ENV_DIST_INIT_CONSUMED = 0
+
+
+def take_distributed_init_failure() -> None:
+    """Consume one ``fail_distributed_init`` token: raise
+    :class:`FaultInjectedError` while tokens remain (the first n bring-up
+    attempts fail), then do nothing. A frame's count decrements in place,
+    so nested :func:`inject` scopes stay independent; the environment's
+    counts down once a process."""
+    for frame in reversed(_STACK):
+        if "fail_distributed_init" in frame:
+            value = frame["fail_distributed_init"]
+            if value is False:
+                return
+            remaining = int(value)
+            if remaining > 0:
+                frame["fail_distributed_init"] = remaining - 1
+                raise FaultInjectedError(
+                    "injected fault: distributed bring-up attempt failed "
+                    f"({remaining - 1} injected failure(s) remaining)"
+                )
+            return
+    value = _parse_env().get("fail_distributed_init")
+    if value is None or value is False:
+        return
+    total = int(value) if str(value).isdigit() else 1
+    global _ENV_DIST_INIT_CONSUMED
+    if _ENV_DIST_INIT_CONSUMED < total:
+        _ENV_DIST_INIT_CONSUMED += 1
+        raise FaultInjectedError(
+            "injected fault: distributed bring-up attempt failed "
+            f"({total - _ENV_DIST_INIT_CONSUMED} injected failure(s) remaining)"
+        )
 
 
 class FakeClock:

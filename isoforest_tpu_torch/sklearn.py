@@ -86,13 +86,9 @@ class TpuIsolationForest(BaseEstimator, OutlierMixin):
 
     def fit(self, X, y=None, mesh=None, checkpoint_dir=None, checkpoint_every=None, resume=False):
         """Fit; ``checkpoint_dir``/``checkpoint_every``/``resume`` go to the
-        estimator's checkpointed fit (a killed fit resumes bit for bit). A
-        ``mesh`` is refused: the port fits on one device."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "fit(mesh=...) needs the multi-device layer (ROADMAP item 15), which the port does not have "
-                "yet; fit on one device (device=...)"
-            )
+        estimator's checkpointed fit (a killed fit resumes bit for bit), and
+        ``mesh`` (:func:`~.parallel.create_mesh`) grows the trees over its
+        shards, to the same model as the unsharded fit."""
         X = np.asarray(X, np.float32)
         self.model_ = self._build_estimator().fit(
             X,
@@ -100,6 +96,7 @@ class TpuIsolationForest(BaseEstimator, OutlierMixin):
             checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every,
             resume=resume,
+            mesh=mesh,
         )
         thr = self.model_.outlier_score_threshold
         # sklearn flags decision_function < 0

@@ -13,6 +13,7 @@ here) bounds the probe on the card, so a probe times one chunk of the call.
 from ..ops.streaming import resolve_chunk_rows
 from .autotuner import (
     DECISION_SOURCES,
+    SHARDED_STRATEGIES,
     Decision,
     autotune_enabled,
     clear_table,
@@ -29,6 +30,7 @@ from .cost_model import DEFAULT_TTL_S, SCHEMA_VERSION, CostModel, cost_model, re
 __all__ = [
     "DECISION_SOURCES",
     "DEFAULT_TTL_S",
+    "SHARDED_STRATEGIES",
     "SCHEMA_VERSION",
     "CostModel",
     "Decision",

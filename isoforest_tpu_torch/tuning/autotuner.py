@@ -16,7 +16,14 @@ best-of-k timed probe of every eligible strategy and persists the winner
   pools only strategies that can serve on the platform. Forests inside the
   fences key with the JAX package's ``|q16`` facet on every platform, so
   the keys equal its keys. The platform is the device type, ``cuda`` or
-  ``cpu``. The ``|jittable`` pool waits for the sharded paths.
+  ``cpu``.
+* **The sharded pool.** Sharded scoring (:mod:`..parallel.sharded`) passes
+  ``restrict=SHARDED_STRATEGIES``, the kernels ``walk`` and ``dense``, and
+  ``num_rows`` (the rows a shard scores, which key the batch bucket); its
+  keys end ``|jittable`` as the JAX package's restricted keys do, though
+  the JAX package's pool is ``gather`` and ``dense``. A pin outside the
+  pool takes the ``shard_pin_ineligible`` rung, which ``strict`` does not
+  raise.
 * **The probe.** The leading rows of the batch, tiled up to
   ``min(batch bucket, chunk rows, cap)`` rows and put on the device, so the
   probe times what one chunk of the call will run and not the copy of X.
@@ -49,7 +56,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -61,6 +68,10 @@ from .cost_model import cost_model
 DECISION_SOURCES = ("table", "probe", "pin", "fallback")
 
 STATIC_DEFAULT = "walk"
+
+# the pool of sharded scoring (parallel/sharded.py): the walk kernels (K1,
+# K3) and the dense ones (K2, K4, K5)
+SHARDED_STRATEGIES = ("walk", "dense")
 
 # probe-row caps by platform (module docstring)
 DEFAULT_PROBE_ROWS = {"cuda": 1 << 20, "cpu": 65_536}
@@ -146,39 +157,49 @@ def model_bucket(forest, num_features: int) -> str:
 
 
 def decision_key(platform: str, forest, num_rows: int, num_features: int,
-                 cache: Optional[dict] = None) -> str:
+                 cache: Optional[dict] = None, restrict: Optional[Sequence[str]] = None) -> str:
     """The persisted table's key: the JAX package's for the same forest and
     batch, but for the platform string, the ``|q16`` facet of a forest the
-    q16 plane covers included. ``cache``, the caller's per-forest dict,
-    keeps the fence's verdict
+    q16 plane covers included; a restricted (sharded) resolution keys
+    ``|jittable`` instead, so the two pools never share an entry. ``cache``,
+    the caller's per-forest dict, keeps the fence's verdict
     (:func:`~..ops.scoring_layout.quantized_unsupported_reason`)."""
     from ..ops.scoring_layout import quantized_eligible
     from ..ops.traversal import batch_bucket
 
     ext = "ext" if _extended(forest) else "std"
     key = f"v1|{platform}|{model_bucket(forest, num_features)}|b{batch_bucket(num_rows)}|{ext}"
+    if restrict is not None:
+        return key + "|jittable"
     return key + "|q16" if quantized_eligible(forest, cache) else key
+
+
+def _unkeyed(platform: str, site: str) -> str:
+    """The key of a resolution with no forest or rows in hand (the train
+    step resolves its strategy before it has grown a forest)."""
+    return f"v1|{platform}|unkeyed|{site}"
 
 
 # -- eligibility ----------------------------------------------------------
 
 
-def eligible_strategies(forest, platform: str = "cuda", cache: Optional[dict] = None) -> Tuple[str, ...]:
+def eligible_strategies(forest, platform: str = "cuda", cache: Optional[dict] = None,
+                        restrict: Optional[Sequence[str]] = None) -> Tuple[str, ...]:
     """Strategies worth probing for this forest on ``platform``, in
     preference order (ties in the timed ranking go to the front): the walk,
     then ``dense`` for trees within the dense kernels' height fence, then,
     off the card, ``q16`` for forests inside the quantized plane's fences
-    (the module docstring says why the card leaves it out). ``cache`` as
-    for :func:`decision_key`."""
+    (the module docstring says why the card leaves it out); only those in
+    ``restrict`` when it is given. ``cache`` as for :func:`decision_key`."""
     from ..ops.dense import DENSE_MAX_HEIGHT
     from ..ops.scoring_layout import quantized_eligible
 
     pool = ["walk"]
     if forest.height <= DENSE_MAX_HEIGHT:
         pool.append("dense")
-    if platform != "cuda" and quantized_eligible(forest, cache):
+    if platform != "cuda" and restrict is None and quantized_eligible(forest, cache):
         pool.append("q16")
-    return tuple(pool)
+    return tuple(s for s in pool if restrict is None or s in restrict)
 
 
 # -- probing --------------------------------------------------------------
@@ -267,6 +288,8 @@ def resolve_decision(
     cache: Optional[dict] = None,
     refresh: bool = False,
     site: str = "score_matrix",
+    restrict: Optional[Sequence[str]] = None,
+    num_rows: Optional[int] = None,
 ) -> Decision:
     """Resolve ``strategy="auto"`` for one scoring call of ``X`` (a tensor on
     the host or on ``device``, default the forest's, or an array); emits exactly one decision
@@ -279,32 +302,49 @@ def resolve_decision(
     a cold or stale key's probe (``probe``). ``chunk_rows`` (default: the
     executor's) bounds the probe; ``cache`` is the model's table cache;
     ``refresh`` probes a fresh key again; ``site`` names the caller in the
-    decision's event (``serving.prewarm`` for serving's warm-up)."""
+    decision's event (``serving.prewarm`` for serving's warm-up).
+
+    ``restrict`` narrows the pool: sharded scoring passes
+    :data:`SHARDED_STRATEGIES`, and then a pin outside it takes the
+    ``shard_pin_ineligible`` rung instead, which ``strict`` does not raise;
+    ``num_rows`` keys the batch bucket on the rows one shard scores rather
+    than on ``X``'s. With ``forest`` None (no shapes in hand: the train step
+    resolves before it has grown a forest; ``device`` is then required) only
+    an eligible pin or the static default is left, under an unkeyed key."""
     from ..ops import streaming, traversal
     from ..resilience.degradation import degrade
 
     from ..utils.validation import extract_features
 
-    X, _ = extract_features(X, nonfinite="allow")
     device = torch.device(device) if device is not None else forest.device
     platform, static_default = device.type, STATIC_DEFAULT
-    n = int(X.shape[0])
-    key = decision_key(platform, forest, n, int(X.shape[1]), cache)
+    if forest is None:
+        key = _unkeyed(platform, site)
+    else:
+        X, _ = extract_features(X, nonfinite="allow")
+        n = int(num_rows) if num_rows is not None else int(X.shape[0])
+        key = decision_key(platform, forest, n, int(X.shape[1]), cache, restrict)
 
     pin = os.environ.get("ISOFOREST_TPU_STRATEGY") or None
     if pin is not None:
-        if pin in traversal.STRATEGIES:
+        if pin in traversal.STRATEGIES and (restrict is None or pin in restrict):
             emit_decision(pin, "pin", key, site)
             return Decision(pin, "pin", key)
-        degrade("env_strategy_unknown", repr(pin), static_default, strict=strict,
-                detail=f"ISOFOREST_TPU_STRATEGY={pin!r} is not one of {'/'.join(traversal.STRATEGIES)}; "
-                       "resolving the measured/tuned default")
+        if restrict is not None:
+            degrade("shard_pin_ineligible", repr(pin), static_default,
+                    detail=f"ISOFOREST_TPU_STRATEGY={pin!r} is not eligible for sharded scoring "
+                           f"({'/'.join(restrict)} only); sharded scoring resolves its own "
+                           "measured/tuned default")
+        else:
+            degrade("env_strategy_unknown", repr(pin), static_default, strict=strict,
+                    detail=f"ISOFOREST_TPU_STRATEGY={pin!r} is not one of {'/'.join(traversal.STRATEGIES)}; "
+                           "resolving the measured/tuned default")
 
-    if not autotune_enabled():
+    if forest is None or not autotune_enabled():
         emit_decision(static_default, "fallback", key, site)
         return Decision(static_default, "fallback", key)
 
-    eligible = eligible_strategies(forest, platform, cache)
+    eligible = eligible_strategies(forest, platform, cache, restrict)
     entry, fresh = cost_model().lookup(key)
     if entry is not None and fresh and not refresh and entry["strategy"] in eligible:
         emit_decision(entry["strategy"], "table", key, site)
@@ -353,6 +393,7 @@ def clear_table() -> bool:
 
 __all__ = [
     "DECISION_SOURCES",
+    "SHARDED_STRATEGIES",
     "Decision",
     "autotune_enabled",
     "clear_table",

@@ -80,6 +80,13 @@ def runs(shifted, tmp_path_factory):
     from isoforest_tpu import IsolationForest as JaxEstimator
     from isoforest_tpu.telemetry import resources as jax_resources
 
+    import jax
+
+    # compile as a fresh process would: a test that ran earlier in this
+    # process (the JAX package's tests/test_lifecycle.py refits the same
+    # window shapes) leaves the refit's programs compiled, and the steady
+    # compiles this module counts would not happen
+    jax.clear_caches()
     X, rows = shifted
     root = tmp_path_factory.mktemp("lifecycle_parity")
     JaxEstimator(num_estimators=N_TREES, max_samples=64.0, random_seed=1).fit(X).save(str(root / "model"))

@@ -5,8 +5,9 @@ Tolerances: both adapters fit the same forest from the same rows and seed
 (node for node, the packages' growth), so their outputs agree within 2e-6
 (the packages' scores differ by up to that much) and their labels agree
 away from the threshold. ``manage`` keeps ``model_`` on the live
-generation. The port's adapter adds ``device`` (``None``: the card) and
-refuses ``fit(mesh=...)``.
+generation. The port's adapter adds ``device`` (``None``: the card);
+``fit(mesh=...)`` grows over a mesh of logical CPU shards to the unsharded
+fit's model.
 """
 
 from __future__ import annotations
@@ -94,8 +95,14 @@ def test_not_fitted_and_mesh_errors(data):
     for method in ("score_samples", "anomaly_score", "diagnostics", "enable_monitoring"):
         with pytest.raises(NotFittedError):
             getattr(TpuIsolationForest(device="cpu"), method)(*((data[:2],) if "score" in method else ()))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TpuIsolationForest(device="cpu").fit(data, mesh=object())
+    from isoforest_tpu_torch.parallel import create_mesh
+
+    sharded = TpuIsolationForest(n_estimators=8, contamination=0.05, device="cpu").fit(
+        data, mesh=create_mesh([torch.device("cpu")] * 8))
+    plain = TpuIsolationForest(n_estimators=8, contamination=0.05, device="cpu").fit(data)
+    assert sharded.offset_ == plain.offset_
+    np.testing.assert_array_equal(sharded.anomaly_score(data), plain.anomaly_score(data))
+    np.testing.assert_array_equal(sharded.predict(data), plain.predict(data))
 
 
 def test_without_a_device_the_adapter_wants_the_card(data, monkeypatch):
