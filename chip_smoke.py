@@ -290,12 +290,54 @@ card:
     ``sharded_score_2d`` on 1 x 1 and 2 x 4 meshes beside the plain calls,
     and of the train step on 1 x 1 and 2 x 2, with the ``nvidia-smi`` line.
 
+Then the multi-tenant fleet, the overload autopilot and the stream engine
+(ROADMAP item 17, parts 1-3) on the card:
+
+33. fleet: ``fleet.serve_fleet`` over a models directory of three tenants:
+    copies of ``mammography_std`` and ``mammography_eif`` (each served
+    through a lifecycle manager) and a seeded F = k = 274 EIF forest of
+    phase 29's shape (100 trees, about 112 MB of records), saved there and
+    served bare. With every launch counter at 0 just before and read just
+    after: JSON ``POST /score/<id>`` of 1, 64 and 4,096 rows to each tenant
+    under each ``ISOFOREST_TPU_STRATEGY`` pin (none, ``walk``, ``dense``),
+    each answer bit for bit the tenant's ``model.score`` of the same rows
+    under the same pin (K1-K5 each launched); the registry's count of each
+    tenant's card bytes beside the rise of ``torch.cuda.memory_allocated``;
+    a budget of both mammography tenants' counts and 1 MiB, so the wide
+    tenant's first request evicts both by LRU; ``fail_fleet_load`` (a
+    typed 503 with Retry-After while the resident tenant answers 200), the
+    reload that evicts the wide tenant by LRU, ``evict_during_score`` (200,
+    bit for bit, cause ``fault_injected``) and ``GET /models``. Then an
+    ``autopilot.Autopilot`` over two threadless services on a FakeClock (the
+    standard fixture at weight 1, the EIF fixture at 0.5), with real queued
+    pressure and ``tick()`` driven by the phase, down rungs 1-3 and back
+    up: flush times at 1, 64 and 4,096 rows at each rung (medians of 7), at
+    rung 3 as the port applies it (a 50-tree prefix on the f32 kernels) and
+    with ``set_quality(force_q16=True)``; rungs 0-2 bit for bit
+    ``model.score``, rung 3 bit for bit ``score_matrix`` of the prefix
+    under the same strategy; the lower weight shed with a 429 at rung 2;
+34. stream: 500,000 resampled mammography rows (cut from 1M for time) at
+    1,000 events a second of event time, up to 0.5 s out of order, the last
+    40% shifted by 3 standard deviations per feature, in 4,096-row batches
+    from ``stream.generator_source`` through a ``StreamEngine`` (60 s
+    windows, 1 s lateness) over a ``ModelManager`` of ``mammography_std``
+    (a decay reservoir with a 60 s half-life; drift over 16 batches
+    triggers a refit inside the flush); with every launch counter at 0 just
+    before and read just after: at least one swap, each batch's scores bit
+    for bit its generation's ``model.score`` (generations reloaded from the
+    work directory), pane, window, fold and late-row counts equal to the
+    same run on the CPU; then 65,536 of the rows over ``socket_source`` on
+    localhost under a 60 s deadline, bit for bit the generator run's. It
+    prints events/s, the lag's p50 and p99 and each refit's wall time.
+
 Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
 with its launches in the 1M-row fit and ``ext_walk_sum`` with its launches
 in the 1M-row EIF fit, ``fit_launches``; each with its launches through
 phase 30, ``serving_launches``, through phase 31,
-``lifecycle_launches``, and through phase 32's counted mesh scoring,
-``parallel_launches``), the ``nvidia-smi`` name and
+``lifecycle_launches``, through phase 32's counted mesh scoring,
+``parallel_launches``, through phase 33's fleet requests,
+``fleet_launches``, and through phase 34's card run, ``stream_launches``),
+the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises and exits non-zero. The run's autotune tables live in
 ``build/`` (git-ignored), fresh each run, so every run probes cold. With
@@ -3066,6 +3108,511 @@ def parallel_phases(dev, X_m, X_big, smi: str) -> dict:
     return launches
 
 
+FLEET_SIZES = (1, 64, 4096)  # rows of each phase-33 request, and of each timed autopilot flush
+FLEET_PINS = ("auto", "walk", "dense")  # the ISOFOREST_TPU_STRATEGY pin of each pass (auto: none)
+FLEET_WIDE_TREES = 100  # the F = k = 274 tenant: phase 29's forest shape
+FLEET_BUDGET_SLACK = 1 << 20  # the budget: both mammography tenants' card bytes and 1 MiB
+AUTOPILOT_QUEUE_ROWS = 16_384
+AUTOPILOT_REPS = 7  # timed flushes per size and rung (median)
+STREAM_EVENTS = 500_000  # cut from 1M: the phase's same run on the CPU takes about 45 s a million
+STREAM_BATCH = 4096
+STREAM_RATE = 1000.0  # events per second of event time: 1M events span 1,000 s
+STREAM_SHIFT_FROM = 0.6  # the last 40% of the events shifted by LIFECYCLE_SHIFT_SD
+STREAM_WINDOW_S = 60.0
+STREAM_LATENESS_S = 1.0  # the events arrive up to 0.5 s out of order: none late
+STREAM_HALF_LIFE_S = 60.0  # the decay reservoir's half-life: a window of event time
+STREAM_DEBOUNCE = 16  # drifted evaluations (4,096-row batches) in a row that trigger a refit
+STREAM_SOCKET_ROWS = 65_536
+STREAM_SOCKET_TIMEOUT_S = 60.0
+
+
+class strategy_pin:
+    """``ISOFOREST_TPU_STRATEGY`` set to ``pin`` for the block (``auto``:
+    unset), as a user pins the strategy of every ``auto`` resolution."""
+
+    def __init__(self, pin: str) -> None:
+        self.pin = pin
+
+    def __enter__(self):
+        self.saved = os.environ.pop("ISOFOREST_TPU_STRATEGY", None)
+        if self.pin != "auto":
+            os.environ["ISOFOREST_TPU_STRATEGY"] = self.pin
+
+    def __exit__(self, *exc):
+        os.environ.pop("ISOFOREST_TPU_STRATEGY", None)
+        if self.saved is not None:
+            os.environ["ISOFOREST_TPU_STRATEGY"] = self.saved
+
+
+def json_rows(X) -> bytes:
+    return json.dumps({"rows": X.tolist()}).encode()
+
+
+def fleet_phases(dev, X_m, smi: str) -> dict:
+    """Phase 33: the multi-tenant fleet and the overload autopilot on the
+    card. ``serve_fleet`` over a models directory of three tenants: copies of
+    ``mammography_std`` (K1, K2) and ``mammography_eif`` (K3, K4), each
+    served through a lifecycle manager, and a seeded F = k = 274 EIF forest
+    (phase 29's shape, K5 and K3) saved there, served bare. With every launch
+    counter at 0 just before and read just after: JSON ``POST
+    /score/<id>`` of 1, 64 and 4,096 rows to each tenant under each
+    strategy pin (auto, walk, dense), each answer bit for bit the tenant's
+    ``model.score`` of the same rows under the same pin; the registry's
+    count of each tenant's card bytes beside the rise of
+    ``torch.cuda.memory_allocated`` over its load and passes; the budget
+    set to both mammography tenants' counts and 1 MiB, so the wide
+    tenant's first request evicts both by LRU; a ``fail_fleet_load`` drill
+    (a typed 503 with Retry-After, the resident tenant answering 200), the
+    reload that evicts the wide tenant by LRU, an ``evict_during_score``
+    drill (200, bit for bit, evicted with cause ``fault_injected``) and
+    ``GET /models``. Then an ``Autopilot`` over two threadless services on
+    a FakeClock (the standard fixture at weight 1, the EIF fixture at
+    0.5), with real queued pressure and ``tick()`` driven here, walked down
+    rungs 1-3 and back up: flush times at 1, 64 and 4,096 rows at each rung
+    (medians), at rung 3 both as the port applies it (the tree prefix on
+    the f32 kernels) and with ``set_quality(force_q16=True)``; answers at
+    rungs 0-2 bit for bit ``model.score``, at rung 3 bit for bit
+    ``score_matrix`` of the same prefix and strategy. Returns the fleet
+    section's launches by kernel name."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import load_model, telemetry
+    from isoforest_tpu_torch.autopilot import Autopilot, AutopilotConfig
+    from isoforest_tpu_torch.fleet import serve_fleet
+    from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
+    from isoforest_tpu_torch.models.extended import ExtendedIsolationForestModel
+    from isoforest_tpu_torch.ops.traversal import score_matrix
+    from isoforest_tpu_torch.resilience import faults
+    from isoforest_tpu_torch.resilience.degradation import degradations
+    from isoforest_tpu_torch.serving import ScoringService, ServingConfig, ShedError
+    from isoforest_tpu_torch.testing import random_extended_forest, rows
+    from isoforest_tpu_torch.utils.params import ExtendedIsolationForestParams
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="fleet_", dir=build))
+    out = {"phase": "fleet", "nvidia_smi": smi}
+    try:
+        models_dir = tmp / "models"
+        shutil.copytree(FIXTURE / "model", models_dir / "mammography_std")
+        shutil.copytree(EIF_FIXTURE / "model", models_dir / "mammography_eif")
+        rng = np.random.default_rng(SEED + 33)
+        wide = ExtendedIsolationForestModel(
+            forest=extended_forest_from_arrays(*random_extended_forest(rng, FLEET_WIDE_TREES, 8, 274, 274,
+                                                                       split_p=1.0), device=dev),
+            params=ExtendedIsolationForestParams(), num_samples=256, num_features=274, extension_level=273,
+            total_num_features=274)
+        t0 = time.perf_counter()
+        wide.save(str(models_dir / "wide_eif_274"))
+        out["wide_save_s"] = time.perf_counter() - t0
+        tenants = ("mammography_std", "mammography_eif", "wide_eif_274")
+        refs = {"mammography_std": load_model(str(FIXTURE / "model"), device=dev),
+                "mammography_eif": load_model(str(EIF_FIXTURE / "model"), device=dev), "wide_eif_274": wide}
+        pool = {t: X_m if t != "wide_eif_274" else rows(rng, max(FLEET_SIZES), 274) for t in tenants}
+        req = {t: {n: pool[t][np.random.default_rng(SEED + n).integers(0, len(pool[t]), n)] for n in FLEET_SIZES}
+               for t in tenants}
+        bodies = {(t, n): json_rows(req[t][n]) for t in tenants for n in FLEET_SIZES}
+        # the references, outside the counted section: each tenant's model.score
+        # under each pin (auto: the autotune table's winner, which the fleet's
+        # resolutions then read)
+        want = {}
+        for pin in FLEET_PINS:
+            with strategy_pin(pin):
+                for t in tenants:
+                    for n in FLEET_SIZES:
+                        want[(t, pin, n)] = [float(s) for s in refs[t].score(req[t][n]).cpu().numpy()]
+
+        def alloc() -> int:
+            gc.collect()
+            return torch.cuda.memory_allocated(dev) if on_card else 0
+
+        config = ServingConfig(batch_rows=4096, linger_ms=2.0, max_queue_rows=16_384, request_timeout_s=120.0)
+        handle = serve_fleet(str(models_dir), config=config, work_root=str(tmp / "work"), device=dev)
+        registry = handle.registry
+        checks, footprint = [], {}
+        zero_launch_counts()
+        try:
+            def post(t: str, n: int, pin: str, expect: int = 200):
+                status, headers, text = http_request(handle.url, f"/score/{t}", bodies[(t, n)])
+                require(status == expect, f"/score/{t} {n} rows under {pin}: {status} {text[:300]}")
+                doc = json.loads(text)
+                if expect == 200:
+                    require(doc["scores"] == want[(t, pin, n)], f"/score/{t} {n} rows under {pin}: not model.score")
+                    require(doc["model_id"] == t, f"/score/{t}: model_id {doc['model_id']}")
+                checks.append((t, n, pin, status))
+                return doc, headers
+
+            def passes(t: str) -> None:
+                for pin in FLEET_PINS:
+                    with strategy_pin(pin):
+                        for n in FLEET_SIZES:
+                            post(t, n, pin)
+
+            base = alloc()
+            t0 = time.perf_counter()
+            passes("mammography_std")
+            a1 = alloc()
+            passes("mammography_eif")
+            a2 = alloc()
+            out["mammography_passes_s"] = time.perf_counter() - t0
+            counted = {t: registry.entry(t).resident_bytes for t in tenants[:2]}
+            footprint["mammography_std"] = {"registry_bytes": counted["mammography_std"], "allocated_rise": a1 - base}
+            footprint["mammography_eif"] = {"registry_bytes": counted["mammography_eif"], "allocated_rise": a2 - a1}
+            # the budget holds both mammography tenants, not the wide one too
+            registry.budget_bytes = counted["mammography_std"] + counted["mammography_eif"] + FLEET_BUDGET_SLACK
+            out["budget_bytes"] = registry.budget_bytes
+            t0 = time.perf_counter()
+            passes("wide_eif_274")
+            out["wide_load_and_passes_s"] = time.perf_counter() - t0
+            wide_entry = registry.entry("wide_eif_274")
+            # both mammography tenants were evicted by the wide tenant's load:
+            # what is allocated now, above the fleet's start, is its alone
+            footprint["wide_eif_274"] = {"registry_bytes": wide_entry.resident_bytes, "allocated_rise": alloc() - base}
+            require(not registry.entry("mammography_std").resident and not registry.entry("mammography_eif").resident,
+                    f"the wide tenant's load left {registry.models_state()}")
+            for t, row in footprint.items():
+                row["registry_vs_allocated"] = row["registry_bytes"] / row["allocated_rise"] if row[
+                    "allocated_rise"] else None
+            out["footprint"] = footprint
+            # fail_fleet_load on the evicted standard tenant: a typed 503, while
+            # the resident wide tenant answers
+            with faults.inject(fail_fleet_load="mammography_std"):
+                doc, headers = post("mammography_std", 1, "auto", expect=503)
+                require(doc["status"] == 503 and headers.get("Retry-After") == "1", f"fail_fleet_load: {doc}")
+                post("wide_eif_274", 1, "auto")
+            # the drill cleared: the reload evicts the wide tenant by LRU
+            post("mammography_std", 64, "auto")
+            require(not wide_entry.resident, "the standard tenant's reload kept the wide tenant")
+            # evict_during_score: the answer comes from the drained flush
+            with faults.inject(evict_during_score=True):
+                post("mammography_std", 64, "auto")
+            require(not registry.entry("mammography_std").resident, "evict_during_score did not evict")
+            post("mammography_eif", max(FLEET_SIZES), "auto")
+            status, _, text = http_request(handle.url, "/models")
+            models = json.loads(text)
+            resident = sorted(r["model_id"] for r in models["models"] if r["resident"])
+            require(status == 200 and resident == ["mammography_eif"] and models["resident_bytes"]
+                    <= models["budget_bytes"], f"GET /models: {models}")
+            evicts = [(e.fields["model_id"], e.fields["cause"]) for e in telemetry.get_events(kind="fleet.evict")]
+            require(evicts == [("mammography_std", "budget"), ("mammography_eif", "budget"),
+                               ("wide_eif_274", "budget"), ("mammography_std", "fault_injected")],
+                    f"evictions {evicts}")
+            rungs = {d.reason: d.count for d in degradations() if d.reason.startswith("fleet_")}
+            require(rungs == {"fleet_load_failed": 1, "fleet_evict_under_load": 1}, f"fleet rungs {rungs}")
+            launches = launch_counts()
+            out.update(requests=len(checks), evictions=evicts, rungs=rungs,
+                       loads=[(e.fields["model_id"], e.fields["bytes"], e.fields["load_seconds"])
+                              for e in telemetry.get_events(kind="fleet.load")],
+                       models=models["models"], launches=launches)
+            require(not on_card or all(launches[k] > 0 for k in launches),
+                    f"a kernel did not launch in the fleet: {launches}")
+        finally:
+            handle.close()
+
+        # the autopilot, over two threadless services on a FakeClock
+        fc = faults.FakeClock()
+        std, eif = refs["mammography_std"], refs["mammography_eif"]
+        gold = ScoringService(model=std, config=ServingConfig(batch_rows=4096, linger_ms=2.0,
+                                                              max_queue_rows=AUTOPILOT_QUEUE_ROWS, weight=1.0),
+                              clock=fc.now, start=False, model_id="mammography_std")
+        bronze = ScoringService(model=eif, config=ServingConfig(batch_rows=4096, linger_ms=2.0,
+                                                                max_queue_rows=AUTOPILOT_QUEUE_ROWS, weight=0.5),
+                                clock=fc.now, start=False, model_id="mammography_eif")
+        ap = Autopilot(services=[gold, bronze], config=AutopilotConfig(engage_ticks=1, recover_ticks=1),
+                       clock=fc.now)
+        prefix = type(std.forest)(*(leaf[: std.forest.num_trees // 2] for leaf in std.forest))
+        zero_launch_counts()
+        flush_ms, rung_log = {}, []
+        try:
+            def drain() -> None:
+                while gold.coalescer.pending_rows:
+                    if not gold.coalescer.pump():
+                        fc.advance(1.0)
+
+            def pressure() -> None:
+                # real queued rows: 0.75 of the queue, never pumped before the tick
+                big = req["mammography_std"][max(FLEET_SIZES)]
+                for i in range(3 * AUTOPILOT_QUEUE_ROWS // 4 // len(big)):
+                    gold.coalescer.submit(big)
+
+            def timed(label: str, expected) -> None:
+                drain()
+                times = {}
+                for n in FLEET_SIZES:
+                    rows_n = req["mammography_std"][n]
+                    want_n = expected(rows_n)
+                    samples = []
+                    for _ in range(AUTOPILOT_REPS):
+                        p = gold.coalescer.submit(rows_n)
+                        fc.advance(1.0)
+                        t0 = time.perf_counter()
+                        require(gold.coalescer.pump() == 1, f"{label}: no flush")
+                        samples.append(time.perf_counter() - t0)
+                        got = gold.coalescer.result(p, timeout_s=0)
+                        require(np.array_equal(got, want_n), f"{label}: {n}-row answer differs")
+                    times[n] = statistics.median(samples) * 1e3
+                flush_ms[label] = times
+
+            def model_score(X):
+                return std.score(X).cpu().numpy()
+
+            def prefix_score(strategy):
+                return lambda X: score_matrix(prefix, X, std.num_samples, strategy=strategy, device=std.device,
+                                              cache={}).cpu().numpy()
+
+            timed("rung0", model_score)
+            for rung in (1, 2, 3):
+                pressure()
+                got = ap.tick()
+                require(got == rung, f"tick gave rung {got}, expected {rung}")
+                rung_log.append({"rung": rung, "pressure": ap.last_pressure, "batch_rows": gold.coalescer.max_batch_rows,
+                                 "linger_ms": gold.coalescer.max_linger_s * 1e3, "bronze_shed": bronze.shed,
+                                 "quality": gold.quality})
+                if rung == 2:
+                    try:
+                        bronze.check_admission()
+                    except ShedError as exc:
+                        require(exc.status == 429, f"shed status {exc.status}")
+                    else:
+                        fail("rung 2 did not shed the lower-weight service")
+                if rung < 3:
+                    timed(f"rung{rung}", model_score)
+            require(gold.quality == {"subsample_trees": 0.5, "q16": not on_card}, f"rung 3 quality {gold.quality}")
+            timed("rung3_as_applied", prefix_score("q16" if not on_card else "auto"))
+            detail = [d.detail for d in degradations() if d.reason == "autopilot_quality_degrade"]
+            gold.set_quality(subsample_trees=0.5, force_q16=True)
+            timed("rung3_q16", prefix_score("q16"))
+            gold.set_quality(subsample_trees=0.5, force_q16=not on_card)
+            for rung in (2, 1, 0):
+                drain()
+                got = ap.tick()
+                require(got == rung, f"recovery tick gave rung {got}, expected {rung}")
+            require(gold.quality is None and not bronze.shed and gold.coalescer.max_batch_rows == 4096,
+                    f"rung 0 did not restore: {gold.state()}")
+            timed("recovered", model_score)
+            out["autopilot"] = {"rungs": rung_log, "flush_ms": flush_ms, "rung3_detail": detail,
+                                "launches": launch_counts(), "state": ap.state()}
+        finally:
+            ap.close()
+            gold.close()
+            bronze.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out["launches"]
+
+
+def stream_events(X_m, n: int):
+    """``(event_ts, rows)`` of the phase-34 stream: resampled mammography
+    rows at ``STREAM_RATE`` events a second, up to 0.5 s out of order, the
+    last 40% shifted by ``LIFECYCLE_SHIFT_SD`` standard deviations per
+    feature."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 34)
+    X = X_m[rng.integers(0, len(X_m), n)].astype(np.float32)
+    X[int(n * STREAM_SHIFT_FROM):] += (LIFECYCLE_SHIFT_SD * X_m.std(axis=0)).astype(np.float32)
+    ts = np.arange(n, dtype=np.float64) / STREAM_RATE + rng.uniform(0.0, 0.5, n)
+    return ts, X
+
+
+def run_stream(dev, ts, X, work: pathlib.Path, source=None, on_scored=None):
+    """One ``StreamEngine`` over a ``ModelManager`` of ``mammography_std`` on
+    ``dev`` (a decay reservoir with a 60 s half-life; sustained drift over
+    ``STREAM_DEBOUNCE`` batches triggers a refit inside the flush that saw
+    it, so the swap lands at one point of the stream, and the engine adds no
+    window-cadence refits), fed ``STREAM_BATCH``-row batches through
+    ``generator_source`` (or ``source``). Returns ``(summary, wall seconds,
+    events, generation -> model)``."""
+    from isoforest_tpu_torch import load_model, telemetry
+    from isoforest_tpu_torch.lifecycle import ModelManager
+    from isoforest_tpu_torch.stream import StreamBatch, StreamConfig, StreamEngine, generator_source
+
+    telemetry.reset_events()
+    model = load_model(str(FIXTURE / "model"), device=dev)
+    manager = ModelManager(model, str(work), reservoir="decay", reservoir_half_life_s=STREAM_HALF_LIFE_S,
+                           drift_debounce=STREAM_DEBOUNCE, background=False)
+    engine = StreamEngine(manager, StreamConfig(window_s=STREAM_WINDOW_S, lateness_s=STREAM_LATENESS_S,
+                                                retrain_every=10**9, batch_rows=STREAM_BATCH), on_scored=on_scored)
+    if source is None:
+        source = generator_source(StreamBatch(ts[i : i + STREAM_BATCH], X[i : i + STREAM_BATCH], None)
+                                  for i in range(0, len(ts), STREAM_BATCH))
+    try:
+        t0 = time.perf_counter()
+        summary = engine.run(source)
+        wall = time.perf_counter() - t0
+    finally:
+        manager.close()
+    events = [(e.kind, e.unix_s, dict(e.fields)) for e in telemetry.get_events()
+              if e.kind.startswith(("stream.", "retrain.", "drift."))]
+    models = {1: model}
+    for g in range(2, summary["generation"] + 1):
+        models[g] = load_model(str(work / f"gen-{g:05d}"), device=dev)
+    return summary, wall, events, models
+
+
+def stream_phases(dev, X_m, smi: str, events: int = STREAM_EVENTS) -> dict:
+    """Phase 34: the stream engine on the card. ``events`` resampled
+    mammography rows with event times (1,000 a second of event time, up to
+    0.5 s out of order, 1 s lateness, 60 s tumbling windows), the last 40%
+    shifted by 3 standard deviations per feature, in 4,096-row batches from
+    ``generator_source`` through a ``StreamEngine`` over a ``ModelManager``
+    of ``mammography_std`` (decay reservoir; sustained drift triggers the
+    refits, run inside the flush), with every launch counter at 0 just before and read
+    just after: at least one refit and swap; each batch's scores bit for
+    bit its generation's ``model.score`` (generations reloaded from the
+    work directory); the pane, window, fold and late-row counts equal to
+    the same run on the CPU; then 65,536 of the rows over a
+    ``socket_source`` on localhost (under its own timeout), whose scores
+    equal the generator run's bit for bit. Prints events/s, the lag's p50
+    and p99 and the refit's wall time. Returns the launches by kernel
+    name."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import telemetry
+    from isoforest_tpu_torch.stream import engine as stream_engine
+    from isoforest_tpu_torch.stream import socket_source
+
+    t_phase = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="stream_", dir=build))
+    out = {"phase": "stream", "nvidia_smi": smi, "events": events}
+    try:
+        ts, X = stream_events(X_m, events)
+        scored = []
+        telemetry.reset_metrics()
+        zero_launch_counts()
+        summary, wall, evs, models = run_stream(dev, ts, X, tmp / "card",
+                                                on_scored=lambda b, s, g: scored.append((b.X, np.array(s), g)))
+        launches = launch_counts()
+        lag = stream_engine._LAG_SECONDS.summary()
+        require(summary["rows"] == events and summary["late_rows"] == 0, f"stream summary {summary}")
+        swaps = sum(1 for e in evs if e[0] == "retrain.swap")
+        require(swaps >= 1 and summary["generation"] == swaps + 1, f"no swap on the shifted stream: {summary}")
+        require(dev.type != "cuda" or launches["walk_sum"] + launches["dense_mean"] > 0,
+                f"the stream launched {launches}")
+        for Xb, s, g in scored:
+            require(np.array_equal(s, models[g].score(Xb).cpu().numpy()),
+                    f"a batch differs from generation {g}'s model.score")
+        starts = {e[2]["seq"]: e[1] for e in evs if e[0] == "retrain.start"}
+        refits = [{"generation": e[2]["generation"], "wall_s": e[1] - starts[e[2]["seq"]], "outcome": e[0]}
+                  for e in evs if e[0] in ("retrain.swap", "retrain.rollback")]
+        counts = {k: summary[k] for k in ("windows_closed", "empty_windows", "folded_rows", "late_rows")}
+        counts["folds"] = sum(1 for e in evs if e[0] == "stream.fold")
+        out.update(wall_s=wall, events_per_s=events / wall, lag_s={k: lag[k] for k in ("p50", "p99", "max")},
+                   swaps=swaps, generation=summary["generation"],
+                   rows_by_generation=summary["rows_by_generation"], refits=refits, counts=counts,
+                   retrain_outcomes=summary["retrain_outcomes"], launches=launches)
+        # the same run on the CPU: the same panes, windows and folds
+        t0 = time.perf_counter()
+        cpu_summary, _, cpu_evs, _ = run_stream(torch.device("cpu"), ts, X, tmp / "cpu")
+        cpu_counts = {k: cpu_summary[k] for k in ("windows_closed", "empty_windows", "folded_rows", "late_rows")}
+        cpu_counts["folds"] = sum(1 for e in cpu_evs if e[0] == "stream.fold")
+        out["cpu"] = {"counts": cpu_counts, "generation": cpu_summary["generation"],
+                      "wall_s": time.perf_counter() - t0}
+        require(cpu_counts == counts, f"pane and window counts: card {counts}, CPU {cpu_counts}")
+        # the socket source over localhost, under its own deadline
+        n_sock = min(STREAM_SOCKET_ROWS, events)
+        deadline = time.monotonic() + STREAM_SOCKET_TIMEOUT_S
+        done = threading.Event()
+        feed = socket_source(0, chunk_rows=STREAM_BATCH, idle_s=0.05,
+                             should_stop=lambda: done.is_set() or time.monotonic() > deadline)
+        lines = "".join(",".join(repr(float(v)) for v in (t, *r)) + "\n" for t, r in zip(ts[:n_sock], X[:n_sock]))
+
+        def send() -> None:
+            with socket.create_connection(("127.0.0.1", feed.port), timeout=STREAM_SOCKET_TIMEOUT_S) as s:
+                s.sendall(lines.encode())
+
+        sender = threading.Thread(target=send, daemon=True)
+        sender.start()
+
+        def received():
+            n = 0
+            for b in feed.batches():
+                n += b.rows
+                if n >= n_sock:
+                    done.set()
+                yield b
+
+        sock_scored = []
+        try:
+            t0 = time.perf_counter()
+            sock_summary, _, _, _ = run_stream(dev, None, None, tmp / "socket", source=received(),
+                                               on_scored=lambda b, s, g: sock_scored.append(np.array(s)))
+            sock_wall = time.perf_counter() - t0
+        finally:
+            done.set()
+            feed.stop()
+            sender.join(timeout=STREAM_SOCKET_TIMEOUT_S)
+        require(sock_summary["rows"] == n_sock, f"the socket delivered {sock_summary['rows']} of {n_sock} rows")
+        first = np.concatenate([s for _, s, _ in scored])[:n_sock]
+        require(np.array_equal(np.concatenate(sock_scored), first), "the socket run's scores differ")
+        out["socket"] = {"rows": n_sock, "wall_s": sock_wall, "windows_closed": sock_summary["windows_closed"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out["launches"]
+
+
+def full_size_rows(X_m, rng):
+    """``main``'s 1,000,000 full-size rows: resampled mammography rows with
+    1% jitter, the first draws of ``rng`` (``default_rng(SEED)``)."""
+    import numpy as np
+
+    idx = rng.integers(0, len(X_m), FULL_ROWS)
+    jitter = rng.normal(0.0, 0.01, (FULL_ROWS, X_m.shape[1])).astype(np.float32)
+    return (X_m[idx] + jitter * X_m.std(axis=0)).astype(np.float32)
+
+
+def run_alone(phase: str) -> int:
+    """Build the kernels and run one of the late phases (``parallel``,
+    ``fleet``, ``stream``) alone on the card, on ``main``'s rows: its checks,
+    its JSON line and its timings, without the whole smoke."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from isoforest_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print(f"{phase}: no CUDA device is available", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    _build.build()
+    print("build_s", time.perf_counter() - t0, flush=True)
+    os.environ["ISOFOREST_TPU_AUTOTUNE_PATH"] = str(ROOT / "build" / f"autotune_{os.getpid()}.json")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    X_m = np.loadtxt(MAMMOGRAPHY, delimiter=",", comments="#").astype(np.float32)[:, :-1]
+    if phase == "parallel":
+        parallel_phases(dev, X_m, full_size_rows(X_m, np.random.default_rng(SEED)), smi)
+    elif phase == "fleet":
+        fleet_phases(dev, X_m, smi)
+    else:
+        stream_phases(dev, X_m, smi)
+    print("total_s", time.perf_counter() - t0)
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "isoforest_tpu_torch").is_dir() or not FIXTURE.is_dir() or not EIF_FIXTURE.is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -3143,9 +3690,7 @@ def main() -> int:
 
     # 4. full size: the main path, then each kernel against its plain version
     rng = np.random.default_rng(SEED)
-    idx = rng.integers(0, len(X_m), FULL_ROWS)
-    jitter = rng.normal(0.0, 0.01, (FULL_ROWS, X_m.shape[1])).astype(np.float32)
-    X_big = (X_m[idx] + jitter * X_m.std(axis=0)).astype(np.float32)
+    X_big = full_size_rows(X_m, rng)
     ext_path.launches["walk_sum"] = 0
     dense.dense_mean.launches = 0
     t0 = time.perf_counter()
@@ -3312,22 +3857,27 @@ def main() -> int:
     serving_launches = serving_phases(X_m, X_big, smi)
     lifecycle_launches = lifecycle_phases(dev, X_m, X_big, smi)
     parallel_launches = parallel_phases(dev, X_m, X_big, smi)
+    fleet_launches = fleet_phases(dev, X_m, smi)
+    stream_launches = stream_phases(dev, X_m, smi)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",
          "replaces": "isoforest_tpu/ops/pallas_walk.py:312", "launches": launches["walk"],
          "fit_launches": fit_launches, "serving_launches": serving_launches["walk_sum"],
          "lifecycle_launches": lifecycle_launches["walk_sum"], "parallel_launches": parallel_launches["walk_sum"],
+         "fleet_launches": fleet_launches["walk_sum"], "stream_launches": stream_launches["walk_sum"],
          "max_abs_err": max(walk_err, walk_small_err), "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
          "bound_ms": walk_bound, "bound_by": walk_by, "library_ms": None},
         {"name": "dense_mean", "route": "cuda", "source": "isoforest_tpu_torch/csrc/dense.cu",
          "replaces": "isoforest_tpu/ops/pallas_traversal.py:278", "launches": launches["dense"],
          "serving_launches": serving_launches["dense_mean"], "lifecycle_launches": lifecycle_launches["dense_mean"],
-         "parallel_launches": parallel_launches["dense_mean"],
+         "parallel_launches": parallel_launches["dense_mean"], "fleet_launches": fleet_launches["dense_mean"],
+         "stream_launches": stream_launches["dense_mean"],
          "max_abs_err": dense_err, "ms": times["dense_ms"], "plain_ms": times["dense_plain_ms"],
          "bound_ms": dense_bound, "bound_by": dense_by, "library_ms": None},
         *({**k, "serving_launches": serving_launches[k["name"]], "lifecycle_launches": lifecycle_launches[k["name"]],
-           "parallel_launches": parallel_launches[k["name"]]}
+           "parallel_launches": parallel_launches[k["name"]], "fleet_launches": fleet_launches[k["name"]],
+           "stream_launches": stream_launches[k["name"]]}
           for k in ext_kernels),
     ]})
     print(smi, flush=True)

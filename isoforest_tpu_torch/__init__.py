@@ -37,7 +37,7 @@ hot swaps; ``serve_model`` serves a model with a baseline through one) and
     scores = manager.score(X)
 """
 
-from . import io, lifecycle, resilience, serving, telemetry, tuning
+from . import io, lifecycle, ops, parallel, resilience, serving, telemetry, tuning, utils
 from .io import persistence
 from .models import ExtendedIsolationForest, ExtendedIsolationForestModel, IsolationForest, IsolationForestModel
 from .ops.traversal import score_matrix
@@ -58,5 +58,5 @@ def load_model(path: str, device=None, require_success: bool = True, verify="aut
 
 
 __all__ = ["ExtendedIsolationForest", "ExtendedIsolationForestModel", "IsolationForest", "IsolationForestModel",
-           "__version__", "io", "lifecycle", "load_model", "resilience", "score_matrix", "serving", "telemetry",
-           "tuning"]
+           "__version__", "io", "lifecycle", "load_model", "ops", "parallel", "resilience", "score_matrix", "serving",
+           "telemetry", "tuning", "utils"]

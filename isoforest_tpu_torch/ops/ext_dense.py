@@ -350,3 +350,12 @@ def path_lengths_ext_dense(X: torch.Tensor, tables) -> torch.Tensor:
     if isinstance(tables, ext_path.PathRecords):
         return ext_sparse_mean(X, tables)
     return ext_dense_mean(X, tables)
+
+
+def extended_path_lengths_dense(forest: ExtendedForest, X: torch.Tensor) -> torch.Tensor:
+    """Mean path lengths of ``X`` through the dense EIF level walk,
+    ``f32[N]``: the sparse kernel for ``k <= SPARSE_K_MAX``, the
+    dense-table kernel above (``isoforest_tpu/ops/dense_traversal.py``'s
+    ``extended_path_lengths_dense``, whose dots are HIGHEST-precision
+    matmuls: another sum order, so the two agree to float32 rounding)."""
+    return path_lengths_ext_dense(X, hyperplane_tables(forest))

@@ -187,6 +187,24 @@ def extended_path_lengths(forest: ExtendedForest, X: torch.Tensor) -> torch.Tens
     return total / torch.tensor(float(forest.num_trees), dtype=torch.float32, device=X.device)
 
 
+def path_lengths(forest, X: torch.Tensor) -> torch.Tensor:
+    """Mean path length per row through the gather walk of either forest
+    kind (``isoforest_tpu/ops/traversal.py``'s ``path_lengths``; the port
+    packs its own tables, so it takes no layout)."""
+    if isinstance(forest, StandardForest):
+        return standard_path_lengths(forest, X)
+    return extended_path_lengths(forest, X)
+
+
+def path_lengths_dense(forest, X: torch.Tensor) -> torch.Tensor:
+    """Mean path length per row through the dense level walk of either
+    forest kind: K2 for a standard forest, K4 or K5 for an extended one
+    (the plain versions on a CPU tensor)."""
+    if isinstance(forest, StandardForest):
+        return dense.standard_path_lengths_dense(forest, X)
+    return ext_dense.extended_path_lengths_dense(forest, X)
+
+
 # -- the quantized (q16) walks (``traversal.py:228-378``) -------------------
 # Rows binarize once per chunk to threshold ranks; each step reads one
 # 32-bit record and compares ranks, ``rx > code``, which is exactly

@@ -25,6 +25,15 @@ reason, logged once per reason until :func:`reset_degradations`, counted on
 * ``shard_pin_ineligible``: an ``ISOFOREST_TPU_STRATEGY`` pin outside the
   sharded pool (``walk``, ``dense``) is ignored by sharded scoring
   (:mod:`..parallel.sharded`), which resolves its own default.
+* ``fleet_load_failed`` and ``fleet_evict_under_load``: a fleet tenant
+  whose lazy load fails is refused with a typed 503 while the others serve,
+  and an eviction drains the tenant's queue first
+  (:mod:`..fleet.registry`); no score changes kernel;
+* ``autopilot_widen_batch``, ``autopilot_shed_low_weight`` and
+  ``autopilot_quality_degrade``: the overload autopilot's brownout rungs
+  (:mod:`..autopilot.controller`). They change the batching, refuse
+  low-weight tenants, or score on a prefix of the trees (and on the CPU
+  the q16 plane), each through the same kernels; none hides a device.
 
 Under ``strict=True`` :func:`degrade` raises :class:`DegradationError`
 instead of taking the rung; ``pipeline_fallback`` is strict-exempt (its
@@ -87,6 +96,47 @@ LADDER: Dict[str, str] = {
         "ineligible ISOFOREST_TPU_STRATEGY pin inside sharded scoring -> "
         "the sharded pool's default (walk/dense): scores within "
         "cross-strategy f32 tolerance"
+    ),
+    "fleet_load_failed": (
+        "a tenant's lazy (re)load from its sealed model dir failed -> that "
+        "tenant's request is refused with a typed 503 (ModelLoadError) and "
+        "the registry retries the load on its next request; every OTHER "
+        "tenant's scoring path is untouched (per-tenant isolation), so no "
+        "score is ever computed from a partially loaded model"
+    ),
+    "fleet_evict_under_load": (
+        "residency-budget pressure (or an injected fault) evicted a tenant "
+        "that still had in-flight requests -> the eviction drains the "
+        "tenant's coalescer first, so every in-flight flush completes on "
+        "its point-in-time model reference with BITWISE-exact scores; only "
+        "subsequent requests pay the re-load from the sealed gen dir — "
+        "like drift_alert, this rung flags an operational event, not a "
+        "compute fallback, so it is deliberately strict-exempt"
+    ),
+    "autopilot_widen_batch": (
+        "sustained queue pressure -> the controller widens the live "
+        "coalescer's max_linger_s/max_batch_rows toward the "
+        "throughput-optimal bucket: scores stay BITWISE identical (batch "
+        "composition never affects a row's score — the serving tier's "
+        "standing parity guarantee); only per-request latency trades "
+        "against throughput, and the original policy is restored "
+        "rung-by-rung on recovery"
+    ),
+    "autopilot_shed_low_weight": (
+        "queue pressure persists at the widened batch policy -> tenants "
+        "below the fleet's highest ServingConfig.weight class are refused "
+        "with a typed 429 (ShedError) + Retry-After; surviving tenants' "
+        "scores remain BITWISE identical and their admission ladder is "
+        "untouched — shed traffic is refused crisply, never half-served"
+    ),
+    "autopilot_quality_degrade": (
+        "queue pressure persists after shedding -> scoring drops to the "
+        "q16 quantized plane and/or a subsample_trees prefix of the "
+        "forest (FastForest, arxiv 2004.02423): path-length normalisation "
+        "rescales to the surviving tree count automatically, an ELIGIBLE "
+        "q16 run is bitwise-equal to its f32 traversal family, and the "
+        "response/flush span say 'degraded' — quality loss is reported, "
+        "never silent; full fidelity returns on recovery"
     ),
     "pipeline_fallback": (
         "staging unavailable for the streaming executor -> synchronous "

@@ -40,9 +40,17 @@ nothing is armed:
 * :func:`take_distributed_init_failure`, before each attempt of
   ``parallel.initialize_distributed``: ``fail_distributed_init[=<n>]``
   fails the first n bring-up attempts (default 1), consumed across calls.
+* :func:`check_fleet_load`, in the fleet registry's lazy load:
+  ``fail_fleet_load[=<model_id>]`` fails every tenant's load (or that
+  tenant's), which the registry answers with a typed 503;
+* :func:`evict_during_score`, in the fleet registry right after a request
+  is queued: ``evict_during_score`` evicts the tenant under the request,
+  whose scores still come from the drained flush.
 
 :class:`FakeClock` is the injectable clock of the serving tests: its
-sleeps only advance virtual time.
+sleeps only advance virtual time. :func:`corrupt_file_on_disk` and
+:func:`truncate_file_on_disk` damage a file in place, for the tests and
+the corrupt-model corpus.
 
 Faults arm with the :func:`inject` context manager or the
 ``ISOFOREST_TPU_FAULTS`` environment variable (comma-separated ``name`` or
@@ -64,6 +72,7 @@ KNOWN_FAULTS = frozenset({
     "corrupt_avro", "truncate_data", "kill_fit_after_block", "kill_score_after_shard", "raise_strategy",
     "slow_collective", "break_pipeline_stage", "kill_replica_during_score", "wedge_replica_healthz",
     "kill_retrain_after_block", "corrupt_candidate", "fail_validation", "fail_swap", "fail_distributed_init",
+    "fail_fleet_load", "evict_during_score",
 })
 
 FaultValue = Union[bool, int, str]
@@ -332,6 +341,29 @@ def maybe_wedge_healthz(clock: Callable[[], float] = time.monotonic,
         sleep(0.01)
 
 
+def check_fleet_load(model_id: str) -> None:
+    """Raise :class:`FaultInjectedError` while ``fail_fleet_load`` is armed
+    (``fail_fleet_load=<model_id>`` fails only that tenant's load): the
+    fleet registry refuses the tenant's request with a typed 503 (the
+    ``fleet_load_failed`` rung) while every other tenant serves, and
+    retries the load on the tenant's next request."""
+    value = get("fail_fleet_load")
+    if value is None or value is False:
+        return
+    if value is True or str(value) == str(model_id):
+        raise FaultInjectedError(
+            f"injected fault: fleet lazy load of model {model_id!r} forced to fail (fail_fleet_load={value!r})"
+        )
+
+
+def evict_during_score() -> bool:
+    """True while ``evict_during_score`` is armed: the fleet registry then
+    evicts the tenant right after a request is queued, and the waiter's
+    scores come from the drained flush on its point-in-time model, bit for
+    bit (the ``fleet_evict_under_load`` rung); the next request reloads."""
+    return active("evict_during_score")
+
+
 # the environment-armed fail_distributed_init tokens consumed in this process
 # (a spawned worker reads the environment afresh, as a flaky bring-up would)
 _ENV_DIST_INIT_CONSUMED = 0
@@ -386,3 +418,32 @@ class FakeClock:
 
     def advance(self, seconds: float) -> None:
         self._now += float(seconds)
+
+
+# -- on-disk mutators (tests and the corrupt-model corpus) --------------------
+
+
+def corrupt_file_on_disk(path: str, offset: Optional[int] = None) -> int:
+    """Flip one byte of ``path`` in place (default: three quarters in);
+    returns the offset flipped. Unlike the read fault this outlives the
+    process: it is what a manifest's CRC exists to catch."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if not data:
+        raise ValueError(f"cannot corrupt empty file {path}")
+    if offset is None:
+        offset = (len(data) * 3) // 4
+    with open(path, "wb") as fh:
+        fh.write(_flip_at(data, offset))
+    return max(0, min(offset, len(data) - 1))
+
+
+def truncate_file_on_disk(path: str, keep: Optional[int] = None) -> int:
+    """Truncate ``path`` in place (default: to half); returns the kept size."""
+    size = os.path.getsize(path)
+    if keep is None:
+        keep = size // 2
+    keep = max(1, min(keep, size))
+    with open(path, "rb+") as fh:
+        fh.truncate(keep)
+    return keep

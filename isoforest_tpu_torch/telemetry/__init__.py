@@ -8,13 +8,14 @@ JAX package's), resource accounting (:mod:`.resources`: kernel and table
 builds counted as compiles, staging and plane bytes, the debug bundle) and
 the HTTP daemon (:mod:`.http`: ``/metrics``, ``/healthz``, ``/snapshot``,
 ``/trace``, ``/traces/recent``, ``/debug/bundle`` and the routes serving
-mounts). The journal and federation are not ported.
+mounts). The journal and federation are not ported yet.
 
 Setting ``ISOFOREST_TPU_METRICS_PORT`` before import starts the HTTP daemon
 on that port, as in the JAX package.
 """
 
 from ._state import disable, enable, enabled
+from .diagnostics import forest_diagnostics, publish_gauges
 from .events import Event, EventTimeline, get_events, record_event, reset_events, timeline
 from .export import (
     parse_prometheus,
@@ -39,6 +40,7 @@ from .metrics import (
     registry,
     reset_metrics,
 )
+from .monitor import Baseline, ScoreMonitor, StreamBaseline, capture_baseline, ks, psi
 from .resources import (
     BUNDLE_SCHEMA,
     BUNDLE_SECTIONS,
@@ -81,13 +83,14 @@ from .spans import records as span_records
 from .spans import summary as span_summary
 
 __all__ = [
-    "BUNDLE_SCHEMA", "BUNDLE_SECTIONS", "DEFAULT_LATENCY_BUCKETS", "Counter", "Event", "EventTimeline", "Gauge",
-    "Histogram", "MetricsRegistry", "MetricsServer", "SpanRecord", "TraceContext", "active_server",
-    "build_bundle", "compile_counts", "compile_log", "compile_scope", "compile_seconds_total", "counter",
-    "current_context", "current_span_name", "disable", "disable_resources", "enable", "enable_resources",
-    "enabled", "exponential_buckets", "gauge", "get_events", "get_trace", "histogram", "mark_steady",
-    "mark_warmup", "maybe_serve_from_env", "memory_watermarks", "model_plane_bytes", "note_host_staging",
-    "parse_prometheus", "peak_host_staging_bytes", "recent_traces", "record_event", "registry", "reset",
+    "BUNDLE_SCHEMA", "BUNDLE_SECTIONS", "DEFAULT_LATENCY_BUCKETS", "Baseline", "Counter", "Event", "EventTimeline",
+    "Gauge", "Histogram", "MetricsRegistry", "MetricsServer", "ScoreMonitor", "SpanRecord", "StreamBaseline",
+    "TraceContext", "active_server", "build_bundle", "capture_baseline", "compile_counts", "compile_log",
+    "compile_scope", "compile_seconds_total", "counter", "current_context", "current_span_name", "disable",
+    "disable_resources", "enable", "enable_resources", "enabled", "exponential_buckets", "forest_diagnostics",
+    "gauge", "get_events", "get_trace", "histogram", "ks", "mark_steady", "mark_warmup", "maybe_serve_from_env",
+    "memory_watermarks", "model_plane_bytes", "note_host_staging", "parse_prometheus", "peak_host_staging_bytes",
+    "psi", "publish_gauges", "recent_traces", "record_event", "registry", "reset",
     "reset_events", "reset_metrics", "reset_resources", "reset_spans", "reset_traces", "resident_plane_bytes",
     "resources_enabled", "seed_trace_ids", "serve", "set_span_attrs", "set_trace_policy", "snapshot",
     "snapshot_json", "span", "span_records", "span_summary", "timeline", "to_chrome_trace",
