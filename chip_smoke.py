@@ -330,13 +330,46 @@ Then the multi-tenant fleet, the overload autopilot and the stream engine
     localhost under a 60 s deadline, bit for bit the generator run's. It
     prints events/s, the lag's p50 and p99 and each refit's wall time.
 
+Then the replicated serving tier (ROADMAP item 17, parts 4 and 5, and the
+``serve`` subcommand it spawns) on the card:
+
+35. tier: (a) in this process, a ``replication.Router`` over two
+    ``fleet.serve_fleet`` replicas of ``mammography_std`` and
+    ``mammography_eif`` (each under its manager) behind a telemetry daemon;
+    with every launch counter at 0 just before and read just after: JSON
+    ``POST /score/<id>`` of 1, 64 and 4,096 rows through the router under
+    each strategy pin (none, ``walk``, ``dense``), each answer bit for bit
+    the tenant's ``model.score`` (K1-K4 each launched); a
+    ``kill_replica_during_score`` sever retried bit for bit, the monitor
+    folding the rows once; a ``stall_current_json_push`` drill (generation 1
+    bit for bit while ``CURRENT.json`` names a sealed generation 2 and the
+    push is stalled, generation 2's scores on both replicas after); the
+    tier's ``/metrics`` (each counter the sum of its sources') and
+    ``/trace``; the journal's cost on 1-row requests, off and on in turns.
+    (b) ``replication.serve_router(models_dir, replicas=2, journal_dir=)``:
+    two ``python -m isoforest_tpu_torch serve --models-dir --no-lifecycle``
+    processes on the card (bare tenants: the hop repeats its rows, whose
+    drift would refit a managed tenant), with an empty kernel build directory
+    (``ISOFOREST_TPU_TORCH_BUILD_DIR``) that both fill at once when warmed
+    together; every answer bit for bit the tenant's ``model.score``; the
+    tier's ``/trace`` stitching the router's lane to a replica's; 200
+    closed-loop 1-row requests with the serving replica SIGKILLed after 100:
+    none fails, the router ejects it within ``probe_interval_s +
+    probe_timeout_s``, the tier's ``/metrics`` counts the live replica's
+    own, its ``/debug/bundle`` names it missing and recovers its spool (its
+    ``fleet.load`` events) from the journal; the router's hop (routed
+    against direct, in turns) at 1, 64 and 4,096 rows; a drain, the
+    survivor's spool ending with ``journal.stop``. It prints each replica's
+    seconds to its ready line and its card memory.
+
 Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
 with its launches in the 1M-row fit and ``ext_walk_sum`` with its launches
 in the 1M-row EIF fit, ``fit_launches``; each with its launches through
 phase 30, ``serving_launches``, through phase 31,
 ``lifecycle_launches``, through phase 32's counted mesh scoring,
 ``parallel_launches``, through phase 33's fleet requests,
-``fleet_launches``, and through phase 34's card run, ``stream_launches``),
+``fleet_launches``, through phase 34's card run, ``stream_launches``, and
+through phase 35's in-process tier, ``tier_launches``),
 the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises and exits non-zero. The run's autotune tables live in
@@ -2171,12 +2204,12 @@ def zero_launch_counts() -> None:
     ext_dense.ext_dense_mean.launches = 0
 
 
-def http_request(url: str, path: str, body=None, content_type: str = "application/json"):
+def http_request(url: str, path: str, body=None, content_type: str = "application/json", headers=None):
     """``(status, headers, text)`` of one request, with a timeout."""
     import urllib.error
     import urllib.request
 
-    req = urllib.request.Request(url + path, data=body, headers={"Content-Type": content_type})
+    req = urllib.request.Request(url + path, data=body, headers={"Content-Type": content_type, **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=SERVING_TIMEOUT_S) as resp:
             return resp.status, dict(resp.headers), resp.read().decode()
@@ -3570,6 +3603,426 @@ def stream_phases(dev, X_m, smi: str, events: int = STREAM_EVENTS) -> dict:
     return out["launches"]
 
 
+TIER_SIZES = (1, 64, 4096)  # rows of each routed request, and of the router's hop
+TIER_PINS = FLEET_PINS  # (a)'s requests under each strategy pin, so K1-K4 all run
+TIER_LOAD_REQUESTS = 200  # (b)'s closed-loop 1-row requests
+TIER_KILL_AFTER = 100  # (b) SIGKILLs the serving replica after this many answers
+TIER_HOP_REPS = {1: 100, 64: 100, 4096: 30}  # routed and direct requests of each size, in turns
+TIER_JOURNAL_REQUESTS = 200  # 1-row requests with the journal on and off, in four turns
+
+
+# a router in a process of its own (argv: the checkout's root, a replica's
+# URL): one routed 1-row request, and whether the process brought up CUDA
+ROUTER_ALONE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from isoforest_tpu_torch.replication import Replica, Router
+router = Router([Replica("replica", sys.argv[2])])
+router.probe_once()
+status, _, payload, _ = router.handle_score_model("mammography_std", b'{"rows": [[0, 0, 0, 0, 0, 0]]}', {})
+print(json.dumps({"status": status, "admitted": router.replicas[0].admitted,
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def tier_post(url: str, path: str, body: bytes, headers=None):
+    """``http_request``'s ``(status, headers, text)`` of one JSON POST, and
+    its seconds."""
+    t0 = time.perf_counter()
+    return (*http_request(url, path, body, headers=headers), time.perf_counter() - t0)
+
+
+def counter_sums(metrics_doc: dict, name: str) -> dict:
+    """``{label set: value}`` of one counter in a registry snapshot."""
+    series = (metrics_doc.get(name) or {}).get("series", ())
+    return {tuple(sorted((k, str(v)) for k, v in s["labels"].items())): s["value"] for s in series}
+
+
+def compute_apps() -> dict:
+    """``{pid: used MiB}`` of the card's compute processes, as
+    ``nvidia-smi --query-compute-apps`` lists them."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    apps = {}
+    for line in out.stdout.strip().splitlines():
+        pid, _, mib = line.partition(",")
+        try:
+            apps[int(pid)] = float(mib)
+        except ValueError:
+            continue
+    return apps
+
+
+def tier_phases(dev, X_m, smi: str) -> dict:
+    """Phase 35: the replicated serving tier on the card. (a) In one
+    process: a port ``Router`` over two port ``serve_fleet`` replicas of
+    ``mammography_std`` and ``mammography_eif`` (each under its manager),
+    behind a telemetry daemon. With every launch counter at 0 just before
+    and read just after: JSON ``POST /score/<id>`` of 1, 64 and 4,096 rows
+    through the router under each strategy pin, each answer bit for bit the
+    tenant's ``model.score``; a ``kill_replica_during_score`` sever retried
+    bit for bit, the monitor folding its rows once; a
+    ``stall_current_json_push`` drill (a generation 2 sealed and named by
+    ``CURRENT.json``: answers stay generation 1's bit for bit while the push
+    is stalled, then generation 2's on both replicas); the tier's ``GET
+    /metrics`` (each counter the sum of the sources' own) and ``GET
+    /trace?format=spans`` (``router.request`` and ``serving.request`` under
+    one trace id). Then the journal's cost: 1-row requests straight to a
+    replica with the journal off and on, in turns. (b) Spawned:
+    ``serve_router(models_dir, replicas=2, journal_dir=)`` starts two
+    ``python -m isoforest_tpu_torch serve --models-dir --no-lifecycle``
+    processes (bare tenants) on the card with an empty kernel build
+    directory, warmed at once (both build the kernels together); every
+    answer bit for bit the tenant's ``model.score``; the tier's ``/trace``
+    stitching the router's lane to a replica's; 200 closed-loop 1-row
+    requests, the serving replica SIGKILLed after 100: no request fails,
+    the router ejects it within ``probe_interval_s + probe_timeout_s``, the
+    tier's ``/metrics`` counts the live replica's own requests, its
+    ``/debug/bundle`` names it missing and recovers its spool (with its
+    ``fleet.load`` events) from the journal; the router's hop on the
+    survivor (routed against direct, in turns, at 1, 64 and 4,096 rows);
+    then a drain. Prints each replica's seconds to its ready line
+    and its card memory. Returns (a)'s launches by kernel name."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import IsolationForest, load_model, telemetry
+    from isoforest_tpu_torch.fleet import serve_fleet
+    from isoforest_tpu_torch.ops import _build
+    from isoforest_tpu_torch.replication import Replica, Router, RouterConfig, mount_router, serve_router
+    from isoforest_tpu_torch.replication import unmount_router
+    from isoforest_tpu_torch.resilience import faults
+    from isoforest_tpu_torch.serving import ServingConfig
+    from isoforest_tpu_torch.telemetry.http import MetricsServer
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="tier_", dir=build))
+    out = {"phase": "tier", "nvidia_smi": smi}
+    tenants = ("mammography_std", "mammography_eif")
+
+    def free_mib() -> float:
+        """The card's free memory, MiB (0 off the card)."""
+        return torch.cuda.mem_get_info(dev)[0] / 2**20 if on_card else 0.0
+
+    policy = telemetry.set_trace_policy()
+    telemetry.set_trace_policy(slow_threshold_s=0.0, sample_every=1)  # keep every trace for /trace
+    try:
+        models_dir = tmp / "models"
+        shutil.copytree(FIXTURE / "model", models_dir / "mammography_std")
+        shutil.copytree(EIF_FIXTURE / "model", models_dir / "mammography_eif")
+        refs = {"mammography_std": load_model(str(FIXTURE / "model"), device=dev),
+                "mammography_eif": load_model(str(EIF_FIXTURE / "model"), device=dev)}
+        req = {n: X_m[np.random.default_rng(SEED + 35 + n).integers(0, len(X_m), n)] for n in TIER_SIZES}
+        bodies = {n: json_rows(req[n]) for n in TIER_SIZES}
+        # the references, outside the counted section: each tenant's
+        # model.score under each pin (auto: the autotune table's winner, which
+        # the replicas' resolutions then read, the spawned ones from its file)
+        want = {}
+        for pin in TIER_PINS:
+            with strategy_pin(pin):
+                for t in tenants:
+                    for n in TIER_SIZES:
+                        want[(t, pin, n)] = [float(s) for s in refs[t].score(req[n]).cpu().numpy()]
+        # generation 2 of the standard tenant, sealed outside the tier (as a
+        # refit in another process would), for the push drill
+        gen2 = IsolationForest(contamination=0.02, random_seed=77, device=dev).fit(X_m)
+        work = tmp / "work"
+        gen2_dir = work / "mammography_std" / "gen-00002"
+        gen2.save(str(gen2_dir))
+        want_gen2 = [float(s) for s in gen2.score(req[64]).cpu().numpy()]
+        require(want_gen2 != want[("mammography_std", "auto", 64)], "generation 2 scores as generation 1")
+
+        # (a) the in-process tier
+        config = ServingConfig(batch_rows=4096, linger_ms=0.0, request_timeout_s=120.0)
+        handles = [serve_fleet(str(models_dir), config=config, work_root=str(work), device=dev) for _ in range(2)]
+        router = Router([Replica(f"r{i}", h.server.url) for i, h in enumerate(handles)], models_dir=str(models_dir),
+                        work_root=str(work))
+        front = MetricsServer(port=0).start()
+        mount_router(front, router)
+        a = {}
+        zero_launch_counts()
+        try:
+            router.probe_once()
+            require(all(r.admitted for r in router.replicas), f"probe: {router.state()}")
+
+            def routed(t: str, n: int, pin: str, headers=None) -> dict:
+                status, hdrs, text, _ = tier_post(front.url, f"/score/{t}", bodies[n], headers)
+                require(status == 200, f"routed /score/{t} {n} rows under {pin}: {status} {text[:300]}")
+                doc = json.loads(text)
+                require(doc["scores"] == want[(t, pin, n)], f"routed /score/{t} {n} rows under {pin}: not model.score")
+                return doc
+
+            for pin in TIER_PINS:
+                with strategy_pin(pin):
+                    for t in tenants:
+                        for n in TIER_SIZES:
+                            routed(t, n, pin)
+            a["requests"] = len(TIER_PINS) * len(tenants) * len(TIER_SIZES)
+            # a replica severed mid-request: retried bit for bit, folded once
+            folded = counter_sums(telemetry.registry().snapshot(), "isoforest_monitored_rows_total")
+            with faults.inject(kill_replica_during_score=True):
+                routed("mammography_std", 64, "auto")
+            folded_after = counter_sums(telemetry.registry().snapshot(), "isoforest_monitored_rows_total")
+            delta = sum(folded_after.values()) - sum(folded.values())
+            retries = [e.fields["replica"] for e in telemetry.get_events(kind="router.replica_retry")]
+            require(delta == 64 and len(retries) == 1, f"sever drill: folded {delta} rows, retries {retries}")
+            r0 = router.replicas[0]
+            require(not r0.admitted and r0.down_cause == "request_failed", f"sever drill: {r0.state()}")
+            router.probe_once()
+            require(r0.admitted, "the severed replica was not admitted again")
+            a["sever"] = {"retried_from": retries, "folded_rows": delta}
+            # the push drill: both replicas hold generation 1, CURRENT.json
+            # names generation 2, the push is stalled, then released
+            for h in handles:
+                status, _, text, _ = tier_post(h.server.url, "/score/mammography_std", bodies[64])
+                require(status == 200 and json.loads(text)["generation"] == 1, f"push drill warm: {text[:200]}")
+            with open(work / "mammography_std" / "CURRENT.json", "w") as fh:
+                json.dump({"generation": 2, "path": str(gen2_dir), "swapped_unix_s": time.time()}, fh)
+            with faults.inject(stall_current_json_push=True):
+                require(router.push_once() == {}, "a stalled push made progress")
+                for _ in range(4):
+                    doc = routed("mammography_std", 64, "auto")
+                    require(doc["generation"] == 1, f"stalled push answered generation {doc['generation']}")
+            require(router.push_once() == {"mammography_std": 2}, f"push: {router.state()}")
+            pushes = [dict(e.fields) for e in telemetry.get_events(kind="router.push")]
+            require(len(pushes) == 1 and pushes[0]["generation"] == 2, f"router.push events {pushes}")
+            for h in handles:
+                status, _, text, _ = tier_post(h.server.url, "/score/mammography_std", bodies[64])
+                doc = json.loads(text)
+                require(status == 200 and doc["generation"] == 2 and doc["scores"] == want_gen2,
+                        f"after the push a replica answered generation {doc.get('generation')}")
+            status, _, text, _ = tier_post(front.url, "/score/mammography_std", bodies[64])
+            require(status == 200 and json.loads(text)["scores"] == want_gen2, "routed after the push")
+            a["push"] = {"events": pushes, "acked": {r.name: dict(r.acked_generations) for r in router.replicas}}
+            # the tier's /metrics: every counter the sum of its sources' own
+            local = telemetry.registry().snapshot()
+            sources, missing = router.federation_sources("/snapshot")
+            status, _, text = http_request(front.url, "/metrics")
+            require(status == 200 and not missing, f"tier /metrics {status}: {text[:300]}")
+            parsed = telemetry.parse_prometheus(text)
+            for name in ("isoforest_fleet_responses_total", "isoforest_router_requests_total"):
+                own = {}
+                for doc in (local, *(d["metrics"] for _, d in sources)):
+                    for key, value in counter_sums(doc, name).items():
+                        own[key] = own.get(key, 0) + value
+                require(own and all(parsed[name][k] == v for k, v in own.items()), f"tier {name}: {own}")
+            # /trace: router.request and serving.request under one trace id
+            routed("mammography_eif", 1, "auto", headers={"X-Isoforest-Trace": "tier-a-1"})
+            status, _, text = http_request(front.url, "/trace?trace_id=tier-a-1&format=spans")
+            names = sorted({s["name"] for s in json.loads(text)["spans"]}) if status == 200 else []
+            require({"router.request", "serving.request"} <= set(names), f"tier /trace spans {names}")
+            a["trace_spans"] = names
+            a["launches"] = launch_counts()
+            # the journal's cost: 1-row requests straight to one replica, off
+            # and on in turns (each on turn spools into build/)
+            lat = {"off": [], "on": []}
+            for turn in ("off", "on", "off", "on"):
+                if turn == "on":
+                    telemetry.activate_journal(str(tmp / "journal_a"), "smoke")
+                try:
+                    for _ in range(TIER_JOURNAL_REQUESTS // 4):
+                        status, _, _, s = tier_post(handles[1].server.url, "/score/mammography_std", bodies[1])
+                        require(status == 200, "journal turn: a request failed")
+                        lat[turn].append(s)
+                finally:
+                    if turn == "on":
+                        telemetry.deactivate_journal()
+            spool = telemetry.read_spool(str(tmp / "journal_a" / "smoke"))
+            a["journal"] = {k: {"p50_ms": percentile_ms(v, 50), "p99_ms": percentile_ms(v, 99)} for k, v in lat.items()}
+            a["journal"]["records"] = len(spool["records"])
+            require(spool["records"] and not spool["torn_tail"], "the smoke's journal spooled nothing")
+        finally:
+            unmount_router(front)
+            front.stop()
+            for h in handles:
+                h.close()
+        launches = a["launches"]
+        require(not on_card or all(launches[k] > 0 for k in ("walk_sum", "ext_walk_sum", "dense_mean",
+                                                             "ext_sparse_mean")),
+                f"a kernel of the tier did not launch: {launches}")
+        out["in_process"] = a
+
+        # (b) the spawned tier, with an empty kernel build directory
+        telemetry.reset_metrics()
+        kernels_dir = tmp / "kernels"
+        journal_dir = tmp / "journal"
+        saved_build = os.environ.get(_build.BUILD_DIR_ENV)
+        os.environ[_build.BUILD_DIR_ENV] = str(kernels_dir)
+        config = RouterConfig()
+        free_before = free_mib()
+        t0 = time.perf_counter()
+        try:
+            # bare tenants (--no-lifecycle): the hop repeats the same rows,
+            # whose drift would refit a managed tenant mid-measurement
+            handle = serve_router(str(models_dir), replicas=2, journal_dir=str(journal_dir), config=config,
+                                  work_root=str(tmp / "work_b"),
+                                  replica_args=("--no-lifecycle",) + (() if on_card else ("--device", "cpu")))
+        finally:
+            if saved_build is None:
+                os.environ.pop(_build.BUILD_DIR_ENV, None)
+            else:
+                os.environ[_build.BUILD_DIR_ENV] = saved_build
+        b = {"serve_router_s": time.perf_counter() - t0}
+        closed = False
+        try:
+            router = handle.router
+            reps = router.replicas
+            b["ready_s"] = {r.name: r.ready_s for r in reps}
+            require(all(r.admitted for r in reps), f"spawned tier: {router.state()}")
+            # warm both replicas at once: each loads both tenants and builds
+            # the kernels it needs into the empty directory, together
+            warm, errors = {}, []
+
+            def warm_replica(r) -> None:
+                t_w = time.perf_counter()
+                for t in tenants:
+                    for n in TIER_SIZES:
+                        status, _, text, _ = tier_post(r.url, f"/score/{t}", bodies[n])
+                        if status != 200 or json.loads(text)["scores"] != want[(t, "auto", n)]:
+                            errors.append((r.name, t, n, status, text[:200]))
+                warm[r.name] = time.perf_counter() - t_w
+
+            threads = [threading.Thread(target=warm_replica, args=(r,)) for r in reps]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=4 * SERVING_TIMEOUT_S)
+            require(not errors and len(warm) == 2, f"warm: {errors or warm}")
+            built = sorted(p.name for p in kernels_dir.iterdir()) if on_card else []
+            require(not on_card or built and all(p.endswith(".so") for p in built), f"kernel build directory {built}")
+            b["warm_s"], b["built"] = warm, built
+            # card memory: nvidia-smi's list (its pids may be the host's), the
+            # card's free memory taken by both replicas, and below each
+            # replica's alone, the free memory its exit gives back
+            b["compute_apps_mib"] = compute_apps() if on_card else {}
+            b["both_replicas_mib"] = free_before - free_mib() if on_card else None
+            # a router in a process of its own routes a request and brings up
+            # no CUDA: it holds no model
+            probe = subprocess.run([sys.executable, "-c", ROUTER_ALONE, str(ROOT), reps[1].url], capture_output=True,
+                                   text=True, timeout=SERVING_TIMEOUT_S)
+            alone = json.loads(probe.stdout.strip().splitlines()[-1]) if probe.returncode == 0 else {}
+            require(alone.get("status") == 200 and alone.get("cuda_initialized") is False,
+                    f"a router alone: {probe.returncode} {alone} {probe.stderr[-500:]}")
+            b["router_alone"] = alone
+            # /trace across processes: the router's lane into the replica's
+            tier_post(handle.url, "/score/mammography_eif", bodies[1], {"X-Isoforest-Trace": "tier-b-1"})
+            status, _, text = http_request(handle.url, "/trace?trace_id=tier-b-1")
+            doc = json.loads(text)
+            lanes = {e["pid"]: e["args"]["name"] for e in doc.get("traceEvents", ())
+                     if e["ph"] == "M" and e["name"] == "process_name"}
+            arrows = [(lanes.get(e["pid"]), e["ph"]) for e in doc.get("traceEvents", ()) if e.get("cat") == "xproc"]
+            require(status == 200 and ("router", "s") in arrows and any(
+                ph == "f" and lane.startswith("replica-") for lane, ph in arrows), f"tier /trace: {arrows} {lanes}")
+            b["trace_lanes"] = sorted(lanes.values())
+            # the load, with the serving replica SIGKILLed after 100 answers:
+            # replica-0, which an idle tier picks first
+            serving = min(reps, key=lambda r: r.name)
+            routed_before = sum(r.requests for r in reps)
+            killed = {}
+
+            def kill_when_due(victim, answered) -> None:
+                answered.wait(SERVING_TIMEOUT_S)
+                killed["t"] = time.perf_counter()
+                os.kill(victim.pid, signal.SIGKILL)
+                while victim.admitted and time.perf_counter() - killed["t"] < 10.0:
+                    time.sleep(0.001)
+                killed["ejected_s"] = time.perf_counter() - killed["t"]
+
+            answered = threading.Event()
+            free_alive = free_mib()
+            killer = threading.Thread(target=kill_when_due, args=(serving, answered))
+            killer.start()
+            lat, failed = [], []
+            for i in range(TIER_LOAD_REQUESTS):
+                status, _, text, s = tier_post(handle.url, "/score/mammography_std", bodies[1])
+                if status != 200 or json.loads(text)["scores"] != want[("mammography_std", "auto", 1)]:
+                    failed.append((i, status, text[:200]))
+                lat.append(s)
+                if i + 1 == TIER_KILL_AFTER:
+                    answered.set()
+            answered.set()
+            killer.join(timeout=30.0)
+            survivor = next(r for r in reps if r is not serving)
+            serving.process.wait(timeout=SERVING_TIMEOUT_S)
+            replica_mib = {serving.name: free_mib() - free_alive if on_card else None}
+            require(not failed, f"failed requests under the kill: {failed[:3]}")
+            require("ejected_s" in killed and not serving.admitted
+                    and killed["ejected_s"] <= config.probe_interval_s + config.probe_timeout_s,
+                    f"ejection: {killed} {serving.state()}")
+            require(survivor.admitted and serving.process.poll() == -signal.SIGKILL, f"after the kill: {router.state()}")
+            b["load"] = {"requests": TIER_LOAD_REQUESTS, "failed": len(failed), "p50_ms": percentile_ms(lat, 50),
+                         "p99_ms": percentile_ms(lat, 99), "max_ms": max(lat) * 1e3,
+                         "ejected_s": killed["ejected_s"], "down_cause": serving.down_cause,
+                         "routed": sum(r.requests for r in reps) - routed_before}
+            # the tier's /metrics: the live replica's own counts, the router's
+            # count of everything routed
+            status, _, text = http_request(handle.url, "/metrics")
+            parsed = telemetry.parse_prometheus(text)
+            live = json.loads(http_request(survivor.url, "/snapshot")[2])["metrics"]
+            own = counter_sums(live, "isoforest_fleet_responses_total")
+            require(status == 200 and own and all(parsed["isoforest_fleet_responses_total"][k] == v
+                                                  for k, v in own.items()), f"tier fleet responses vs {own}")
+            routed_200 = sum(v for k, v in parsed["isoforest_router_requests_total"].items() if ("code", "200") in k)
+            require(routed_200 == sum(r.requests for r in reps), f"router count {routed_200}")
+            require(parsed["isoforest_tier_missing_replicas"][(("replica", serving.name),)] == 1, "missing gauge")
+            # the bundle recovers the dead replica's spool from the journal
+            status, _, text = http_request(handle.url, "/debug/bundle")
+            bundle = json.loads(text)
+            recovered = bundle["replicas"].get(serving.name, {}).get("journal", {})
+            loads = [r["model_id"] for r in recovered.get("records", ()) if r.get("kind") == "fleet.load"]
+            require(status == 200 and bundle["missing_replicas"] == [serving.name] and sorted(loads) == sorted(tenants),
+                    f"bundle: missing {bundle.get('missing_replicas')}, recovered loads {loads}")
+            b["bundle"] = {"missing_replicas": bundle["missing_replicas"], "recovered_records":
+                           len(recovered["records"]), "torn_tail": recovered["torn_tail"], "fleet_loads": loads}
+            # the router's hop on the survivor: routed against direct, in turns
+            hop = {}
+            for n in TIER_SIZES:
+                lat = {"routed": [], "direct": []}
+                for _ in range(TIER_HOP_REPS[n]):
+                    for way, url in (("routed", handle.url), ("direct", survivor.url)):
+                        status, _, text, s = tier_post(url, "/score/mammography_std", bodies[n])
+                        require(status == 200 and json.loads(text)["scores"] == want[("mammography_std", "auto", n)],
+                                f"hop {way} {n} rows: {status} {text[:200]}")
+                        lat[way].append(s)
+                hop[n] = {way: {"p50_ms": percentile_ms(v, 50), "p99_ms": percentile_ms(v, 99)}
+                          for way, v in lat.items()}
+                hop[n]["hop_p50_ms"] = hop[n]["routed"]["p50_ms"] - hop[n]["direct"]["p50_ms"]
+            b["hop"] = hop
+            # close by drain
+            free_alive = free_mib()
+            t0 = time.perf_counter()
+            handle.close()
+            closed = True
+            b["close_s"] = time.perf_counter() - t0
+            replica_mib[survivor.name] = free_mib() - free_alive if on_card else None
+            b["replica_mib"] = replica_mib
+            require(survivor.process.returncode == 0, f"the survivor exited {survivor.process.returncode}")
+            spools = telemetry.list_spools(str(journal_dir))
+            tail = telemetry.read_spool(str(journal_dir / survivor.name))["records"][-1]
+            require(sorted(spools) == ["replica-0", "replica-1"] and tail.get("kind") == "journal.stop",
+                    f"spools {spools}, the survivor's last record {tail}")
+        finally:
+            if not closed:
+                handle.close()
+        out["spawned"] = b
+    finally:
+        telemetry.set_trace_policy(**policy)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = out["in_process"]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out["launches"]
+
+
 def full_size_rows(X_m, rng):
     """``main``'s 1,000,000 full-size rows: resampled mammography rows with
     1% jitter, the first draws of ``rng`` (``default_rng(SEED)``)."""
@@ -3582,8 +4035,8 @@ def full_size_rows(X_m, rng):
 
 def run_alone(phase: str) -> int:
     """Build the kernels and run one of the late phases (``parallel``,
-    ``fleet``, ``stream``) alone on the card, on ``main``'s rows: its checks,
-    its JSON line and its timings, without the whole smoke."""
+    ``fleet``, ``stream``, ``tier``) alone on the card, on ``main``'s rows:
+    its checks, its JSON line and its timings, without the whole smoke."""
     import numpy as np
     import torch
 
@@ -3607,6 +4060,8 @@ def run_alone(phase: str) -> int:
         parallel_phases(dev, X_m, full_size_rows(X_m, np.random.default_rng(SEED)), smi)
     elif phase == "fleet":
         fleet_phases(dev, X_m, smi)
+    elif phase == "tier":
+        tier_phases(dev, X_m, smi)
     else:
         stream_phases(dev, X_m, smi)
     print("total_s", time.perf_counter() - t0)
@@ -3859,6 +4314,7 @@ def main() -> int:
     parallel_launches = parallel_phases(dev, X_m, X_big, smi)
     fleet_launches = fleet_phases(dev, X_m, smi)
     stream_launches = stream_phases(dev, X_m, smi)
+    tier_launches = tier_phases(dev, X_m, smi)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",
@@ -3866,18 +4322,19 @@ def main() -> int:
          "fit_launches": fit_launches, "serving_launches": serving_launches["walk_sum"],
          "lifecycle_launches": lifecycle_launches["walk_sum"], "parallel_launches": parallel_launches["walk_sum"],
          "fleet_launches": fleet_launches["walk_sum"], "stream_launches": stream_launches["walk_sum"],
+         "tier_launches": tier_launches["walk_sum"],
          "max_abs_err": max(walk_err, walk_small_err), "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
          "bound_ms": walk_bound, "bound_by": walk_by, "library_ms": None},
         {"name": "dense_mean", "route": "cuda", "source": "isoforest_tpu_torch/csrc/dense.cu",
          "replaces": "isoforest_tpu/ops/pallas_traversal.py:278", "launches": launches["dense"],
          "serving_launches": serving_launches["dense_mean"], "lifecycle_launches": lifecycle_launches["dense_mean"],
          "parallel_launches": parallel_launches["dense_mean"], "fleet_launches": fleet_launches["dense_mean"],
-         "stream_launches": stream_launches["dense_mean"],
+         "stream_launches": stream_launches["dense_mean"], "tier_launches": tier_launches["dense_mean"],
          "max_abs_err": dense_err, "ms": times["dense_ms"], "plain_ms": times["dense_plain_ms"],
          "bound_ms": dense_bound, "bound_by": dense_by, "library_ms": None},
         *({**k, "serving_launches": serving_launches[k["name"]], "lifecycle_launches": lifecycle_launches[k["name"]],
            "parallel_launches": parallel_launches[k["name"]], "fleet_launches": fleet_launches[k["name"]],
-           "stream_launches": stream_launches[k["name"]]}
+           "stream_launches": stream_launches[k["name"]], "tier_launches": tier_launches[k["name"]]}
           for k in ext_kernels),
     ]})
     print(smi, flush=True)

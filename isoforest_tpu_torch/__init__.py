@@ -31,7 +31,10 @@ metrics and events, :mod:`.resilience` the watchdog and the fault seams,
 coalesced into one ``model.score`` a flush), :mod:`.lifecycle` the model
 lifecycle (``lifecycle.ModelManager``: drift-triggered refits, validated
 hot swaps; ``serve_model`` serves a model with a baseline through one) and
-:mod:`.sklearn` the scikit-learn adapter.
+:mod:`.sklearn` the scikit-learn adapter. :mod:`.fleet`, :mod:`.autopilot`
+and :mod:`.stream` serve many tenants, brown out under overload and score
+event-time streams; :mod:`.replication` fronts replica processes with a
+router (``python -m isoforest_tpu_torch serve|route|journal``).
 
     manager = lifecycle.ModelManager(served, "work_dir")  # refits on drift, swaps when the gates pass
     scores = manager.score(X)

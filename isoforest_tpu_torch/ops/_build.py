@@ -3,7 +3,9 @@
 Each source in ``isoforest_tpu_torch/csrc/`` has a plain C interface and
 becomes its own shared library for ``sm_90a``, built at first use into
 ``build/isoforest_tpu_torch/`` beside the package (the ``build/`` directory
-is git-ignored). A library's file name carries a hash of its source and of
+is git-ignored), or into ``ISOFOREST_TPU_TORCH_BUILD_DIR`` when that is set
+at import. Processes that build one source at once are safe: each compiles
+to a file of its own and renames it into place. A library's file name carries a hash of its source and of
 the nvcc flags, so an edited kernel or a change of flags is rebuilt and a
 stale library never loaded. Each build reports its seconds as an
 ``NVCC_BUILD_EVENT`` (:mod:`..utils.monitoring`), which the resource plane
@@ -27,7 +29,8 @@ from ..utils import monitoring
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "isoforest_tpu_torch"
+BUILD_DIR_ENV = "ISOFOREST_TPU_TORCH_BUILD_DIR"
+BUILD_DIR = pathlib.Path(os.environ.get(BUILD_DIR_ENV) or PACKAGE_DIR.parent / "build" / "isoforest_tpu_torch")
 
 SOURCES = {"dense": "dense.cu", "path_walk": "path_walk.cu", "ext_gemm": "ext_gemm.cu"}
 

@@ -45,7 +45,10 @@ nothing is armed:
   tenant's), which the registry answers with a typed 503;
 * :func:`evict_during_score`, in the fleet registry right after a request
   is queued: ``evict_during_score`` evicts the tenant under the request,
-  whose scores still come from the drained flush.
+  whose scores still come from the drained flush;
+* :func:`push_stalled`, in the router's rolling-push pass:
+  ``stall_current_json_push`` freezes it (no replica learns of a new
+  ``CURRENT.json`` generation while armed; disarming resumes the push).
 
 :class:`FakeClock` is the injectable clock of the serving tests: its
 sleeps only advance virtual time. :func:`corrupt_file_on_disk` and
@@ -72,7 +75,7 @@ KNOWN_FAULTS = frozenset({
     "corrupt_avro", "truncate_data", "kill_fit_after_block", "kill_score_after_shard", "raise_strategy",
     "slow_collective", "break_pipeline_stage", "kill_replica_during_score", "wedge_replica_healthz",
     "kill_retrain_after_block", "corrupt_candidate", "fail_validation", "fail_swap", "fail_distributed_init",
-    "fail_fleet_load", "evict_during_score",
+    "fail_fleet_load", "evict_during_score", "stall_current_json_push",
 })
 
 FaultValue = Union[bool, int, str]
@@ -362,6 +365,14 @@ def evict_during_score() -> bool:
     scores come from the drained flush on its point-in-time model, bit for
     bit (the ``fleet_evict_under_load`` rung); the next request reloads."""
     return active("evict_during_score")
+
+
+def push_stalled() -> bool:
+    """True while ``stall_current_json_push`` is armed: the router's
+    rolling-push pass then makes no progress, so replicas keep answering
+    with the old generation bit for bit until the stall clears and the push
+    converges."""
+    return active("stall_current_json_push")
 
 
 # the environment-armed fail_distributed_init tokens consumed in this process

@@ -15,11 +15,23 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from . import _state
 
 MAX_EVENTS = 4096
+
+# the journal's write-through tap (:mod:`.journal`): every recorded event is
+# also handed to the sink, outside the timeline lock, so file I/O never
+# blocks a producer; None costs one load
+_EVENT_SINK: Optional[Callable[["Event"], None]] = None
+
+
+def set_event_sink(sink: Optional[Callable[["Event"], None]]) -> None:
+    """Install (or clear, with None) the process-wide event sink. Its
+    exceptions are swallowed: recording must never break the recorded path."""
+    global _EVENT_SINK
+    _EVENT_SINK = sink
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +68,12 @@ class EventTimeline:
                 overflow = len(self._events) - self._maxlen
                 del self._events[:overflow]
                 self._dropped += overflow
+        sink = _EVENT_SINK
+        if sink is not None:
+            try:
+                sink(event)
+            except Exception:
+                pass  # the recorder must never take the recorded path down
         return event
 
     def events(self, kind: Optional[str] = None, since_seq: Optional[int] = None) -> List[Event]:

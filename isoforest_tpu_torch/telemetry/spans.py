@@ -49,7 +49,7 @@ import dataclasses
 import os
 import threading
 import time
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 from . import _state
 from .metrics import DEFAULT_LATENCY_BUCKETS, counter, histogram
@@ -467,9 +467,24 @@ def set_trace_policy(
         return dict(_policy)
 
 
+# the journal's write-through tap (:mod:`.journal`): each committed trace-ring
+# entry is also handed to the sink, outside ``_traces_lock``, so spool I/O
+# never blocks span completion
+_TRACE_COMMIT_SINK: Optional[Callable[[dict], None]] = None
+
+
+def set_trace_commit_sink(sink: Optional[Callable[[dict], None]]) -> None:
+    """Install (or clear, with None) the trace-commit sink. It receives the
+    committed ring entry (trace_id, root, spans, ...); its exceptions are
+    swallowed: recording must never break tracing."""
+    global _TRACE_COMMIT_SINK
+    _TRACE_COMMIT_SINK = sink
+
+
 def _trace_sink(record: SpanRecord) -> None:
     if record.trace_id is None:
         return
+    committed_entry = None
     with _traces_lock:
         committed = _trace_ring.get(record.trace_id)
         if committed is not None:
@@ -491,13 +506,24 @@ def _trace_sink(record: SpanRecord) -> None:
         else:
             spans_list.append(record)
         if record.parent_id is None:
-            _finalize_locked(record)
+            entry = _finalize_locked(record)
+            if entry is not None:
+                # copied under the lock: a late child appends to the ring's
+                # list, never to the copy the sink serialises after release
+                committed_entry = dict(entry, spans=list(entry["spans"]))
+    sink = _TRACE_COMMIT_SINK
+    if committed_entry is not None and sink is not None:
+        try:
+            sink(committed_entry)
+        except Exception:
+            pass  # the recorder must never take the traced path down
 
 
 def _finalize_locked(root: SpanRecord) -> Optional[dict]:
     """Root span completed: apply the capture policy and commit (or drop)
     the trace. Caller holds ``_traces_lock``. Returns the committed ring
-    entry, or None when the trace was sampled out."""
+    entry (for the trace-commit sink, called after the lock is released),
+    or None when the trace was sampled out."""
     global _sample_seq
     spans_list = _open_traces.pop(root.trace_id, [])
     slow = root.wall_s >= float(_policy["slow_threshold_s"])

@@ -69,3 +69,54 @@ def test_failed_nvcc_raises_with_its_log(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed for ext_gemm.cu .exit 2.:\nerror: no such intrinsic"):
         _build.build(["ext_gemm"])
     assert not _build.library_path("ext_gemm").exists()
+
+
+def test_the_build_directory_comes_from_the_environment(tmp_path, monkeypatch):
+    import importlib
+
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path / "kernels"))
+    try:
+        importlib.reload(_build)
+        assert _build.BUILD_DIR == tmp_path / "kernels"
+        assert _build.library_path("dense").parent == tmp_path / "kernels"
+    finally:
+        monkeypatch.delenv(_build.BUILD_DIR_ENV)
+        importlib.reload(_build)
+    assert _build.BUILD_DIR == _build.PACKAGE_DIR.parent / "build" / "isoforest_tpu_torch"
+
+
+# two processes that find the same library missing, as two cold replicas
+# of the tier do: each runs its own (fake) nvcc into a file of its own
+_CONCURRENT_BUILD = (
+    "import sys; sys.path.insert(0, sys.argv[1]); "
+    "from isoforest_tpu_torch.ops import _build; "
+    "print(sorted(_build.build(['path_walk'])))"
+)
+
+
+def test_two_processes_building_one_source_at_once(tmp_path):
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    # each nvcc waits (up to 60 s) until both have started, then writes
+    nvcc.write_text("#!/usr/bin/env python3\nimport os, pathlib, sys, time\nargs = sys.argv[1:]\n"
+                    f"gate = pathlib.Path({str(tmp_path / 'gate')!r})\n"
+                    "gate.mkdir(exist_ok=True)\n(gate / str(os.getpid())).touch()\n"
+                    "t0 = time.time()\n"
+                    "while len(list(gate.iterdir())) < 2 and time.time() - t0 < 60:\n    time.sleep(0.01)\n"
+                    "pathlib.Path(args[args.index('-o') + 1]).write_text('lib')\n")
+    nvcc.chmod(0o755)
+    env = dict(os.environ, CUDA_HOME=str(tmp_path / "cuda"), ISOFOREST_TPU_TORCH_BUILD_DIR=str(tmp_path / "kernels"))
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    procs = [subprocess.Popen([sys.executable, "-c", _CONCURRENT_BUILD, root], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [err[-2000:] for _, err in outs]
+    # both compiled at once (neither saw the other's library), one library stands
+    assert [out.strip() for out, _ in outs] == ["['path_walk']", "['path_walk']"]
+    built = sorted(p.name for p in (tmp_path / "kernels").iterdir())
+    assert len(built) == 1 and built[0].startswith("libpath_walk-") and built[0].endswith(".so")

@@ -20,23 +20,13 @@ import pytest
 import torch
 
 SUBPACKAGES = ("", ".telemetry", ".utils", ".ops", ".resilience", ".serving", ".lifecycle", ".tuning",
-               ".parallel", ".models", ".io", ".autopilot", ".fleet", ".stream")
+               ".parallel", ".models", ".io", ".autopilot", ".fleet", ".stream", ".replication")
 
-_JOURNAL = "the journal (telemetry/journal.py) is ROADMAP item 17 part 4, not ported yet"
-_FEDERATION = "federation (telemetry/federation.py) is ROADMAP item 17 part 4, not ported yet"
 _LAYOUT = ("the port builds its tables per strategy (ops/traversal.py scoring_tables), "
            "not the JAX package's packed layout")
 
 # subpackage -> {JAX name: why the port has no attribute of that name}
 PINNED = {
-    ".telemetry": {
-        **{n: _JOURNAL for n in ("Journal", "activate_journal", "active_journal", "deactivate_journal",
-                                 "list_spools", "read_spool", "set_event_sink", "set_trace_commit_sink")},
-        **{n: _FEDERATION for n in ("BucketMismatchError", "DuplicateSourceError", "FederationError",
-                                    "MetricTypeConflictError", "federated_chrome", "federated_trace_spans",
-                                    "merge_events", "merge_metrics", "merge_recent_traces", "merge_snapshots",
-                                    "metrics_to_prometheus")},
-    },
     ".ops": {n: _LAYOUT for n in ("PackedStandardLayout", "get_layout", "pack_forest")},
     ".tuning": {
         "JITTABLE_STRATEGIES": ("the JAX package's sharded pool is its shard_map-jittable pair (gather, dense); "
@@ -77,7 +67,7 @@ def test_the_ports_own_all_resolves(sub):
 
 def test_the_new_packages_are_in_the_import_check():
     root = pathlib.Path(__file__).resolve().parent.parent / "isoforest_tpu_torch"
-    for name in ("autopilot", "fleet", "stream"):
+    for name in ("autopilot", "fleet", "stream", "replication"):
         assert sorted(p.name for p in (root / name).glob("*.py")), name
 
 
