@@ -362,14 +362,40 @@ Then the replicated serving tier (ROADMAP item 17, parts 4 and 5, and the
     survivor's spool ending with ``journal.stop``. It prints each replica's
     seconds to its ready line and its card memory.
 
+Then the command line and ONNX export (ROADMAP items 6 and 7) on the card:
+
+36. cli: (a) real ``python -m isoforest_tpu_torch`` processes on the
+    default device: ``fit`` of mammography (standard, and EIF with
+    ``--extended --extension-level 5``; 100 trees, 11,183 x 6), then
+    ``score`` of each and of the committed ``mammography_std``: each
+    summary names ``cuda``, each saved forest equals an in-process fit node
+    for node, each scores CSV this process's ``model.score`` bit for bit,
+    the fixture's within 2e-6 of ``jax_scores.npy``. (b) Through
+    ``main(argv)`` in this process, the launch counters at 0 before each
+    call and read after it: ``score`` of phase 4's 1M rows with both
+    fixtures, ``walk`` and ``dense`` (and the walk in four chunks, the
+    same file byte for byte), ``score --source`` over five shards and
+    ``--resume``, ``inspect``, ``diagnose``, ``telemetry``, ``trace``,
+    ``debug-bundle``, ``autotune --warm``/``--format table``/``--clear``,
+    ``monitor`` and ``manage`` on shifted rows (drift, a swap) and
+    ``stream`` over 100,000 timestamped rows, each held to its JAX test's
+    checks and timed. (c) ONNX: ``convert`` of the fixtures and of (a)'s
+    fits, the port's runtime on the 11,183 rows within 1e-5 of the card's
+    scores (standard) or the port's gather walk (EIF), the independent
+    checker within 1e-6 of it on 1,000 rows; a 10-tree F = k = 274 EIF fit
+    and scored with ``dense`` through the CLI (K5), converted and held to
+    the JAX test's boundary bound. It prints each call's seconds and
+    launches, and the conversions' and runtime's host seconds.
+
 Then a ``{"kernels": [...]}`` line for all five kernels (``walk_sum`` also
 with its launches in the 1M-row fit and ``ext_walk_sum`` with its launches
 in the 1M-row EIF fit, ``fit_launches``; each with its launches through
 phase 30, ``serving_launches``, through phase 31,
 ``lifecycle_launches``, through phase 32's counted mesh scoring,
 ``parallel_launches``, through phase 33's fleet requests,
-``fleet_launches``, through phase 34's card run, ``stream_launches``, and
-through phase 35's in-process tier, ``tier_launches``),
+``fleet_launches``, through phase 34's card run, ``stream_launches``,
+through phase 35's in-process tier, ``tier_launches``, and through phase
+36's in-process CLI calls, ``cli_launches``),
 the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises and exits non-zero. The run's autotune tables live in
@@ -4023,6 +4049,440 @@ def tier_phases(dev, X_m, smi: str) -> dict:
     return out["launches"]
 
 
+CLI_PROCESS_TIMEOUT_S = 300.0  # (a)'s bound on each CLI process
+CLI_BIG_ROWS = FULL_ROWS  # (b)'s rows: phase 4's (a rehearsal on the CPU shrinks them)
+CLI_SHARDS = 5  # (b)'s .npy shards of them
+CLI_CHUNK_ROWS = 262_144  # (b)'s chunked score: four chunks of the 1M rows instead of one
+CLI_STREAM_EVENTS = 100_000  # cut from phase 34's 500,000 for time
+CLI_STREAM_WINDOW_S = 20.0  # five windows over the 100 s of event time
+CLI_MANAGE_CHUNK = 2048  # manage's chunks: one drift evaluation each
+CLI_WIDE_TREES = 10  # (c)'s F = k = 274 EIF: a 100-tree one's host Avro takes 20 s to load
+CLI_BOUNDARY_DIFF = 5e-3  # tests/test_onnx.py:248: a boundary flip moves a score by one subtree's share
+CLI_TOP_SHARE = 0.95  # ... and the top 2% keep their ranks
+
+
+def cli_processes(argvs: list, env: dict) -> list:
+    """``python -m isoforest_tpu_torch <argv>`` for each of ``argvs``, all
+    started together from the checkout's root, each under
+    ``CLI_PROCESS_TIMEOUT_S``; a non-zero exit fails the smoke with its
+    stderr. Returns ``(stdout, seconds)`` per process. Every process is
+    stopped before this returns."""
+    procs = [(argv, time.perf_counter(),
+              subprocess.Popen([sys.executable, "-m", "isoforest_tpu_torch", *argv], cwd=ROOT, env=env,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for argv in ([str(a) for a in argv] for argv in argvs)]
+    results = []
+    try:
+        for argv, t0, proc in procs:
+            try:
+                out, err = proc.communicate(timeout=CLI_PROCESS_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"`{' '.join(argv[:1])}` did not end within {CLI_PROCESS_TIMEOUT_S} s")
+            require(proc.returncode == 0, f"`{' '.join(argv)}` exited {proc.returncode}: {err[-3000:]}")
+            results.append((out, time.perf_counter() - t0))
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+def cli_call(argv: list, totals: dict) -> tuple:
+    """``main(argv)`` of the port's CLI in this process, with every launch
+    counter at 0 just before and read just after (and added to
+    ``totals``); a non-zero exit fails the smoke with its stderr. Returns
+    ``(stdout, stderr, seconds, launches)``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from isoforest_tpu_torch.__main__ import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main([str(a) for a in argv])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    require(rc == 0, f"`{argv[0]}` exited {rc}: {err.getvalue()[-3000:]}")
+    for name, n in launches.items():
+        totals[name] = totals.get(name, 0) + n
+    return out.getvalue(), err.getvalue(), seconds, launches
+
+
+def require_same_scores(path, model, scores, what: str) -> None:
+    """The CSV's scores equal ``scores`` (``model``'s float32 tensor) bit for
+    bit, its labels ``model.predict`` of them."""
+    import numpy as np
+
+    # float64: the CSV's %.18e text holds each float32 score exactly
+    table = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    got, labels = table[:, 0], table[:, 1]
+    want = scores.cpu().numpy()
+    require(got.shape == want.shape and np.array_equal(got, want.astype(np.float64)),
+            f"{what}: the CSV's scores differ from model.score's (max |d| "
+            f"{float(np.abs(got - want).max()) if got.shape == want.shape else 'shape'})")
+    require(np.array_equal(labels, model.predict(scores).cpu().numpy()), f"{what}: the CSV's labels differ")
+
+
+def cli_phases(dev, X_m, smi: str) -> dict:
+    """Phase 36: the port's command line and ONNX export on the card.
+
+    (a) Real processes: ``python -m isoforest_tpu_torch fit`` of
+    mammography (``--labeled --contamination 0.02``, and ``--extended
+    --extension-level 5``; 100 trees, 11,183 x 6) on the default device,
+    then ``score --strategy walk`` of each and of the committed
+    ``mammography_std``. Each summary names ``cuda``; each saved forest
+    equals an in-process fit of the same arguments node for node, threshold
+    exact; the standard AUROC in [0.84, 0.90]; each scores CSV equals this
+    process's ``model.score`` of the saved directory bit for bit; the
+    fixture's within 2e-6 of ``jax_scores.npy``.
+
+    (b) In this process through ``main(argv)``, each call with the launch
+    counters at 0 just before and read just after: ``score --input`` of
+    phase 4's 1,000,000 rows (one ``.npy``) with both fixtures and
+    ``walk`` and ``dense``, each CSV ``model.score`` bit for bit, and the
+    standard walk again in four chunks, byte for byte the same file;
+    ``score --source`` over five ``.npy`` shards of them (``walk``), then
+    ``--resume``, which skips every part and launches nothing, the sink one
+    ``model.score`` a shard exactly; ``inspect`` with and without
+    ``--tree 0``; ``diagnose`` as JSON and Prometheus; ``telemetry``,
+    ``trace`` and ``debug-bundle`` on the synthetic workload; ``autotune
+    --warm --batch-sizes 1,64,4096`` (its own table), ``--format table``
+    and ``--clear``; ``monitor`` and ``manage`` on the mammography rows
+    shifted by 3 standard deviations a feature (drift reported; at least
+    one swap); ``stream`` over a file of 100,000 of phase 34's timestamped
+    rows. Each is held to its JAX test's checks, and timed.
+
+    (c) ONNX: ``convert`` of both fixtures and of (a)'s fits (timed on the
+    host), the port's runtime on the 11,183 rows (timed): the standard
+    graphs within 1e-5 of the card's ``model.score`` with equal labels away
+    from the threshold, the EIF graphs within 1e-5 of the port's gather
+    walk (on the CPU); ``checker.reference_scores`` on the first 1,000 rows
+    within 1e-6 of the runtime. Then ``fit --extended --extension-level
+    273`` of a 10-tree EIF on 65,536 of phase 29's K5-shaped rows (its
+    generator's finite rows, F = k = 274), ``score --strategy dense`` of it
+    (K5), its conversion, and the runtime held to the JAX test's boundary
+    bound against the card's scores.
+
+    Returns the launches of (b)'s and (c)'s CLI calls by kernel name. On
+    the CPU (a rehearsal: shrink ``CLI_BIG_ROWS`` and ``CLI_CHUNK_ROWS``)
+    every call gets ``--device cpu`` and the launch checks are skipped."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch import ExtendedIsolationForest, IsolationForest, load_model, telemetry, tuning
+    from isoforest_tpu_torch.io import source as srcmod
+    from isoforest_tpu_torch.io.outofcore import read_scores
+    from isoforest_tpu_torch.onnx import checker, runtime
+    from isoforest_tpu_torch.ops import _build
+    from isoforest_tpu_torch.ops.traversal import extended_path_lengths
+    from isoforest_tpu_torch.testing import finite_rows, random_extended_forest
+    from isoforest_tpu_torch.utils.math import score_from_path_length
+
+    t_phase = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cli_", dir=build))
+    out = {"phase": "cli", "nvidia_smi": smi}
+    totals: dict = {}
+    saved_autotune = os.environ.get("ISOFOREST_TPU_AUTOTUNE_PATH")
+    on_card = dev.type == "cuda"
+    # on the card every call takes the default device; a CPU rehearsal names its own
+    device = [] if on_card else ["--device", "cpu"]
+    try:
+        # (a) the entry point in real processes, on the default device
+        t_a = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": str(ROOT), _build.BUILD_DIR_ENV: str(_build.BUILD_DIR)}
+        env.pop("ISOFOREST_TPU_STRATEGY", None)
+        fits = {"std": [], "eif": ["--extended", "--extension-level", "5"]}
+        fit_runs = cli_processes([["fit", "--input", MAMMOGRAPHY, "--labeled", "--output", tmp / kind,
+                                   "--contamination", "0.02", *extra, *device]
+                                  for kind, extra in fits.items()], env)
+        score_dirs = {"std": tmp / "std", "eif": tmp / "eif", "jax_std_fixture": FIXTURE / "model"}
+        score_runs = cli_processes([["score", "--model", d, "--input", MAMMOGRAPHY, "--labeled", "--strategy", "walk",
+                                     "--output", tmp / f"scores_{kind}.csv", *device]
+                                    for kind, d in score_dirs.items()], env)
+        X, y = srcmod.open_source(str(MAMMOGRAPHY), labeled=True).read_all()
+        processes = {}
+        for (kind, extra), (stdout, secs) in zip(fits.items(), fit_runs):
+            summary = json.loads(stdout.strip().splitlines()[-1])
+            require(summary["device"] == dev.type, f"fit {kind} ran on {summary['device']}")
+            saved = load_model(str(tmp / kind), device=dev)
+            # the CLI's defaults, named
+            kw = dict(num_estimators=100, max_samples=256.0, contamination=0.02, contamination_error=0.0,
+                      max_features=1.0, bootstrap=False, random_seed=1, device=dev)
+            est = ExtendedIsolationForest(extension_level=5, **kw) if extra else IsolationForest(**kw)
+            here = est.fit(X)
+            differing = [name for name, a, b in zip(type(here.forest)._fields, here.forest, saved.forest)
+                         if not torch.equal(a, b)]
+            require(not differing, f"fit {kind}: the saved forest differs from an in-process fit in {differing}")
+            require(summary["threshold"] == here.outlier_score_threshold == saved.outlier_score_threshold,
+                    f"fit {kind}: threshold {summary['threshold']} against {here.outlier_score_threshold}")
+            if kind == "std":
+                require(0.84 <= summary["auroc"] <= 0.90, f"fit std: AUROC {summary['auroc']}")
+            processes[f"fit_{kind}"] = {"s": secs, "summary": summary}
+        for (kind, d), (_, secs) in zip(score_dirs.items(), score_runs):
+            model = load_model(str(d), device=dev)
+            s = model.score(X, strategy="walk")
+            require_same_scores(tmp / f"scores_{kind}.csv", model, s, f"score {kind}")
+            processes[f"score_{kind}"] = {"s": secs}
+            if kind == "jax_std_fixture":
+                err = float(np.abs(s.cpu().numpy() - np.load(FIXTURE / "jax_scores.npy")).max())
+                require(err <= 2e-6, f"the CLI's fixture scores are {err} from the JAX package's")
+                processes[f"score_{kind}"]["vs_jax_max_abs"] = err
+        out["processes"] = processes
+        out["processes_s"] = time.perf_counter() - t_a
+
+        # (b) every subcommand in this process, with the launch counters
+        t_b = time.perf_counter()
+        calls = {}
+        X_big = full_size_rows(X_m, np.random.default_rng(SEED))[:CLI_BIG_ROWS]
+        big = tmp / "big.npy"
+        np.save(big, X_big)
+        fixtures = {"std": load_model(str(FIXTURE / "model"), device=dev),
+                    "eif": load_model(str(EIF_FIXTURE / "model"), device=dev)}
+        for kind, model in fixtures.items():
+            model_dir = FIXTURE / "model" if kind == "std" else EIF_FIXTURE / "model"
+            for strategy in ("walk", "dense"):
+                csv = tmp / f"big_{kind}_{strategy}.csv"
+                _, _, secs, launches = cli_call(["score", "--model", model_dir, "--input", big, "--strategy", strategy,
+                                                 "--output", csv, *device], totals)
+                require_same_scores(csv, model, model.score(X_big, strategy=strategy), f"score {kind} {strategy} 1M")
+                calls[f"score_1m_{kind}_{strategy}"] = {"s": secs, "launches": launches}
+        chunked = tmp / "big_std_walk_chunked.csv"
+        _, _, secs, launches = cli_call(["score", "--model", FIXTURE / "model", "--input", big, "--strategy", "walk",
+                                         "--chunk-rows", CLI_CHUNK_ROWS, "--output", chunked, *device], totals)
+        require(chunked.read_bytes() == (tmp / "big_std_walk.csv").read_bytes(),
+                "the chunked scores CSV differs from the unchunked one")
+        calls["score_1m_std_walk_chunked"] = {"s": secs, "launches": launches, "chunk_rows": CLI_CHUNK_ROWS}
+        for path in tmp.glob("big_*.csv"):
+            path.unlink()
+
+        shards = tmp / "shards"
+        shards.mkdir()
+        bounds = np.linspace(0, CLI_BIG_ROWS, CLI_SHARDS + 1).astype(int)
+        for i in range(CLI_SHARDS):
+            srcmod.write_npy_shard(str(shards / f"part-{i}.npy"), X_big[bounds[i]:bounds[i + 1]])
+        sink = tmp / "sink"
+        std_dir = FIXTURE / "model"
+        stdout, _, secs, launches = cli_call(["score", "--model", std_dir, "--source", shards, "--output", sink,
+                                              "--strategy", "walk", *device], totals)
+        summary = json.loads(stdout.strip().splitlines()[-1])
+        require(summary["sealed"] == CLI_SHARDS and summary["rows"] == CLI_BIG_ROWS and summary["device"] == dev.type
+                and (launches["walk_sum"] > 0 or not on_card), f"score --source: {summary}, {launches}")
+        calls["score_source"] = {"s": secs, "launches": launches}
+        stdout, _, secs, launches = cli_call(["score", "--model", std_dir, "--source", shards, "--output", sink,
+                                              "--strategy", "walk", "--resume", *device], totals)
+        summary = json.loads(stdout.strip().splitlines()[-1])
+        require((summary["sealed"], summary["skipped"]) == (0, CLI_SHARDS) and not any(launches.values()),
+                f"score --resume: {summary}, {launches}")
+        per_shard = np.concatenate([fixtures["std"].score(X_big[bounds[i]:bounds[i + 1]], strategy="walk")
+                                    .cpu().numpy() for i in range(CLI_SHARDS)])
+        require(np.array_equal(read_scores(str(sink), num_shards=CLI_SHARDS), per_shard),
+                "the sink differs from model.score a shard")
+        calls["score_source_resume"] = {"s": secs, "launches": launches}
+        shutil.rmtree(shards)
+        shutil.rmtree(sink)
+        big.unlink()
+        del X_big
+
+        stdout, _, secs, _ = cli_call(["inspect", "--model", std_dir, *device], totals)
+        info = json.loads(stdout)
+        require(info["numTrees"] == 100 and info["params"]["numEstimators"] == 100 and info["device"] == dev.type,
+                f"inspect: {info}")
+        calls["inspect"] = {"s": secs}
+        stdout, _, secs, _ = cli_call(["inspect", "--model", EIF_FIXTURE / "model", "--tree", "0", *device], totals)
+        require(stdout.strip().startswith(("ExtendedInternalNode(", "ExtendedExternalNode(")),
+                f"inspect --tree 0: {stdout[:80]}")
+        calls["inspect_tree"] = {"s": secs}
+        stdout, _, secs, _ = cli_call(["diagnose", std_dir, *device], totals)
+        diag = json.loads(stdout)
+        require(diag["num_trees"] == 100 and "feature_split_usage" in diag and diag["device"] == dev.type,
+                f"diagnose: {sorted(diag)}")
+        calls["diagnose_json"] = {"s": secs}
+        stdout, _, secs, _ = cli_call(["diagnose", std_dir, "--format", "prometheus", *device], totals)
+        require(telemetry.parse_prometheus(stdout)["isoforest_forest_trees"][()] == 100.0, "diagnose prometheus")
+        calls["diagnose_prometheus"] = {"s": secs}
+
+        stdout, _, secs, launches = cli_call(["telemetry", *device], totals)
+        snap = json.loads(stdout)
+        require(snap["telemetry_enabled"] is True and "isolation_forest.fit.grow" in snap["spans"]
+                and "isoforest_scored_rows_total" in snap["metrics"], f"telemetry: {sorted(snap['spans'])}")
+        calls["telemetry"] = {"s": secs, "launches": launches}
+        trace_path = tmp / "trace.json"
+        stdout, _, secs, _ = cli_call(["trace", trace_path, *device], totals)
+        summary = json.loads(stdout)
+        doc = json.loads(trace_path.read_text())
+        require(summary["root"] == "model.score" and summary["device"] == dev.type
+                and any(e.get("name") == "model.score" for e in doc["traceEvents"]), f"trace: {summary}")
+        calls["trace"] = {"s": secs, "spans": summary["spans"]}
+        bundle_path = tmp / "bundle.json"
+        stdout, _, secs, _ = cli_call(["debug-bundle", bundle_path, *device], totals)
+        summary = json.loads(stdout)
+        bundle = json.loads(bundle_path.read_text())
+        require(summary["traces"] >= 1 and summary["sections"] == sorted(k for k in bundle if k != "schema"),
+                f"debug-bundle: {summary}")
+        calls["debug_bundle"] = {"s": secs, "sections": len(summary["sections"])}
+
+        # autotune against a table of its own, so --clear removes only it
+        table = tmp / "autotune.json"
+        os.environ["ISOFOREST_TPU_AUTOTUNE_PATH"] = str(table)
+        tuning.reset_cost_model()
+        _, stderr, secs, launches = cli_call(["autotune", "--warm", "--batch-sizes", "1,64,4096", *device], totals)
+        warmed = json.loads(stderr.strip().splitlines()[-1])
+        require(table.exists() and warmed["device"] == dev.type and len(warmed["warmed"]) == 3
+                and {d["strategy"] for d in warmed["warmed"]} <= ({"walk", "dense"} if on_card else
+                                                                   {"walk", "dense", "q16"}),
+                f"autotune --warm: {warmed}")
+        calls["autotune_warm"] = {"s": secs, "launches": launches,
+                                  "decisions": [[d["batch"], d["strategy"], d["source"]] for d in warmed["warmed"]]}
+        stdout, _, secs, _ = cli_call(["autotune", "--format", "table"], totals)
+        keys = {d["key"] for d in warmed["warmed"]}  # 1 and 64 rows share a batch bucket
+        require(sum(line.split(" -> ")[0] in keys for line in stdout.splitlines()) == len(keys),
+                f"autotune table: {stdout[:300]}")
+        stdout, _, secs, _ = cli_call(["autotune", "--clear"], totals)
+        require(json.loads(stdout)["existed"] is True and not table.exists(), "autotune --clear")
+        calls["autotune_clear"] = {"s": secs}
+        if saved_autotune is None:
+            os.environ.pop("ISOFOREST_TPU_AUTOTUNE_PATH", None)
+        else:
+            os.environ["ISOFOREST_TPU_AUTOTUNE_PATH"] = saved_autotune
+        tuning.reset_cost_model()
+
+        shifted = tmp / "shifted.csv"
+        np.savetxt(shifted, X_m + (LIFECYCLE_SHIFT_SD * X_m.std(axis=0)).astype(np.float32), delimiter=",")
+        model_copy = tmp / "model_std"
+        shutil.copytree(std_dir, model_copy)
+        stdout, _, secs, launches = cli_call(["monitor", model_copy, "--input", shifted, *device], totals)
+        report = json.loads(stdout)
+        require(report["drifted"] is True and report["score"]["psi"] > 0.25 and report["rows"] == len(X_m)
+                and report["device"] == dev.type, f"monitor: drifted {report['drifted']}, psi {report['score']['psi']}")
+        calls["monitor"] = {"s": secs, "launches": launches, "psi": report["score"]["psi"]}
+        stdout, _, secs, launches = cli_call(["manage", model_copy, "--input", shifted, "--work-dir", tmp / "lc",
+                                              "--debounce", "1", "--chunk-rows", CLI_MANAGE_CHUNK, *device], totals)
+        summary = json.loads(stdout)
+        current = json.loads((tmp / "lc" / "CURRENT.json").read_text())
+        require(summary["retrains"].get("swapped", 0) >= 1 and summary["generation"] >= 2
+                and current["generation"] == summary["generation"] and summary["rows"] == len(X_m)
+                and summary["device"] == dev.type, f"manage: {summary['retrains']}, generation {summary['generation']}")
+        calls["manage"] = {"s": secs, "launches": launches, "generation": summary["generation"],
+                           "retrains": summary["retrains"], "psi_after": summary["drift"]["score"]["psi"]}
+        ts, Xs = stream_events(X_m, CLI_STREAM_EVENTS)
+        stream_csv = tmp / "stream.csv"
+        np.savetxt(stream_csv, np.column_stack([ts, Xs]), delimiter=",")
+        # stream takes SIGTERM and SIGINT for its own stop: give them back after
+        handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+        try:
+            stdout, _, secs, launches = cli_call(["stream", model_copy, "--source", stream_csv, "--window-s",
+                                                  CLI_STREAM_WINDOW_S, "--lateness-s", STREAM_LATENESS_S,
+                                                  "--retrain-every", "2", "--work-dir", tmp / "stream_lc",
+                                                  *device], totals)
+        finally:
+            for sig, handler in handlers.items():
+                signal.signal(sig, handler)
+        summary = json.loads(stdout)
+        current = json.loads((tmp / "stream_lc" / "CURRENT.json").read_text())
+        require(summary["rows"] == CLI_STREAM_EVENTS and summary["late_rows"] == 0
+                and summary["windows_closed"] >= 4 and summary["swaps"] >= 1 and summary["reservoir"] == "decay"
+                and summary["rss_trajectory"] and current["generation"] == summary["generation"]
+                and summary["device"] == dev.type,
+                f"stream: {({k: summary[k] for k in ('rows', 'late_rows', 'windows_closed', 'swaps')})}")
+        calls["stream"] = {"s": secs, "launches": launches, "events_per_s": CLI_STREAM_EVENTS / secs,
+                           "windows_closed": summary["windows_closed"], "swaps": summary["swaps"]}
+        out["calls"] = calls
+        out["calls_s"] = time.perf_counter() - t_b
+
+        # (c) ONNX: conversion and the portable runtime, on the host
+        t_c = time.perf_counter()
+        onnx_rows = {}
+        graphs = {"std_fixture": FIXTURE / "model", "eif_fixture": EIF_FIXTURE / "model",
+                  "std_fit": tmp / "std", "eif_fit": tmp / "eif"}
+        for name, model_dir in graphs.items():
+            path = tmp / f"{name}.onnx"
+            stdout, _, convert_s, _ = cli_call(["convert", "--model", model_dir, "--output", path], totals)
+            require(json.loads(stdout)["onnx"] == str(path), f"convert {name}: {stdout}")
+            graph = path.read_bytes()
+            t0 = time.perf_counter()
+            scores, labels = runtime.run_model(graph, {"features": X})
+            runtime_s = time.perf_counter() - t0
+            model = load_model(str(model_dir), device=dev)
+            if name.startswith("std"):
+                want = model.score(X).cpu().numpy()
+                thr = model.outlier_score_threshold
+                away = np.abs(want - thr) > 1e-5
+                require(np.array_equal(labels[away, 0], (want[away] >= thr).astype(np.int32)),
+                        f"{name}: ONNX labels differ away from the threshold")
+            else:
+                cpu = load_model(str(model_dir), device="cpu")
+                want = score_from_path_length(extended_path_lengths(cpu.forest, torch.from_numpy(X)),
+                                              cpu.num_samples).numpy()
+            err = float(np.abs(scores[:, 0] - want).max())
+            require(scores.shape == (len(X), 1) and err < 1e-5, f"{name}: ONNX scores {err} from the port's")
+            ref_err = float(np.abs(checker.reference_scores(graph, X[:1000])[:, 0] - scores[:1000, 0]).max())
+            require(ref_err < 1e-6, f"{name}: the checker's evaluator is {ref_err} from the runtime")
+            onnx_rows[name] = {"bytes": len(graph), "convert_s": convert_s, "runtime_s": runtime_s,
+                               "vs_port_max_abs": err, "checker_vs_runtime_max_abs": ref_err}
+
+        # K5 through the CLI: a 10-tree fully extended EIF at F = k = 274
+        rng5 = np.random.default_rng(SEED + 29)
+        random_extended_forest(rng5, 100, 8, 274, 274, split_p=1.0)  # phase 29's forest: its draws come first
+        X5 = finite_rows(rng5, HIGH_DIM_ROWS, 274)
+        wide_rows, wide_dir, wide_csv = tmp / "wide.npy", tmp / "wide", tmp / "wide.csv"
+        np.save(wide_rows, X5)
+        stdout, _, fit_s, fit_launches = cli_call(["fit", "--input", wide_rows, "--extended", "--extension-level",
+                                                   "273", "--num-estimators", CLI_WIDE_TREES, "--output", wide_dir,
+                                                   *device], totals)
+        require(json.loads(stdout)["numTrees"] == CLI_WIDE_TREES, f"the wide fit: {stdout}")
+        _, _, score_s, score_launches = cli_call(["score", "--model", wide_dir, "--input", wide_rows, "--strategy",
+                                                  "dense", "--output", wide_csv, *device], totals)
+        require(score_launches["ext_dense_mean"] > 0 or not on_card, f"the wide dense score launched {score_launches}")
+        wide = load_model(str(wide_dir), device=dev)
+        require(wide.forest.k == 274, f"the wide EIF has k = {wide.forest.k}")
+        card = wide.score(X5, strategy="dense")
+        require_same_scores(wide_csv, wide, card, "score of the wide EIF")
+        path = tmp / "wide.onnx"
+        _, _, convert_s, _ = cli_call(["convert", "--model", wide_dir, "--output", path], totals)
+        t0 = time.perf_counter()
+        scores, _ = runtime.run_model(path.read_bytes(), {"features": X5})
+        runtime_s = time.perf_counter() - t0
+        # the JAX test's contract for an EIF whose dots sum in another order
+        diff = np.abs(scores[:, 0] - card.cpu().numpy())
+        top = HIGH_DIM_ROWS // 50
+        bound_check = {"max_abs": float(diff.max()), "rows_differing": int((diff > 1e-5).sum()),
+                       "top_2pct_overlap": len(set(np.argsort(scores[:, 0])[-top:])
+                                               & set(np.argsort(card.cpu().numpy())[-top:])) / top}
+        require(bound_check["max_abs"] < CLI_BOUNDARY_DIFF and bound_check["top_2pct_overlap"] >= CLI_TOP_SHARE,
+                f"the wide EIF's ONNX scores break the boundary bound: {bound_check}")
+        onnx_rows["wide_eif_274"] = {"rows": HIGH_DIM_ROWS, "trees": CLI_WIDE_TREES, "bytes": path.stat().st_size,
+                                     "fit_s": fit_s, "score_s": score_s, "fit_launches": fit_launches,
+                                     "score_launches": score_launches, "convert_s": convert_s,
+                                     "runtime_s": runtime_s, **bound_check}
+        out["onnx"] = onnx_rows
+        out["onnx_s"] = time.perf_counter() - t_c
+    finally:
+        if saved_autotune is None:
+            os.environ.pop("ISOFOREST_TPU_AUTOTUNE_PATH", None)
+        else:
+            os.environ["ISOFOREST_TPU_AUTOTUNE_PATH"] = saved_autotune
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = [name for name in launch_counts() if not totals.get(name)]
+    require(not missing or not on_card, f"the CLI's in-process runs launched no {missing}: {totals}")
+    out["launches"] = totals
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return totals
+
+
 def full_size_rows(X_m, rng):
     """``main``'s 1,000,000 full-size rows: resampled mammography rows with
     1% jitter, the first draws of ``rng`` (``default_rng(SEED)``)."""
@@ -4035,7 +4495,7 @@ def full_size_rows(X_m, rng):
 
 def run_alone(phase: str) -> int:
     """Build the kernels and run one of the late phases (``parallel``,
-    ``fleet``, ``stream``, ``tier``) alone on the card, on ``main``'s rows:
+    ``fleet``, ``stream``, ``tier``, ``cli``) alone on the card, on ``main``'s rows:
     its checks, its JSON line and its timings, without the whole smoke."""
     import numpy as np
     import torch
@@ -4062,6 +4522,8 @@ def run_alone(phase: str) -> int:
         fleet_phases(dev, X_m, smi)
     elif phase == "tier":
         tier_phases(dev, X_m, smi)
+    elif phase == "cli":
+        cli_phases(dev, X_m, smi)
     else:
         stream_phases(dev, X_m, smi)
     print("total_s", time.perf_counter() - t0)
@@ -4315,6 +4777,7 @@ def main() -> int:
     fleet_launches = fleet_phases(dev, X_m, smi)
     stream_launches = stream_phases(dev, X_m, smi)
     tier_launches = tier_phases(dev, X_m, smi)
+    cli_launches = cli_phases(dev, X_m, smi)
 
     emit({"kernels": [
         {"name": "walk_sum", "route": "cuda", "source": "isoforest_tpu_torch/csrc/path_walk.cu",
@@ -4322,7 +4785,7 @@ def main() -> int:
          "fit_launches": fit_launches, "serving_launches": serving_launches["walk_sum"],
          "lifecycle_launches": lifecycle_launches["walk_sum"], "parallel_launches": parallel_launches["walk_sum"],
          "fleet_launches": fleet_launches["walk_sum"], "stream_launches": stream_launches["walk_sum"],
-         "tier_launches": tier_launches["walk_sum"],
+         "tier_launches": tier_launches["walk_sum"], "cli_launches": cli_launches["walk_sum"],
          "max_abs_err": max(walk_err, walk_small_err), "ms": times["walk_ms"], "plain_ms": times["walk_plain_ms"],
          "bound_ms": walk_bound, "bound_by": walk_by, "library_ms": None},
         {"name": "dense_mean", "route": "cuda", "source": "isoforest_tpu_torch/csrc/dense.cu",
@@ -4330,11 +4793,13 @@ def main() -> int:
          "serving_launches": serving_launches["dense_mean"], "lifecycle_launches": lifecycle_launches["dense_mean"],
          "parallel_launches": parallel_launches["dense_mean"], "fleet_launches": fleet_launches["dense_mean"],
          "stream_launches": stream_launches["dense_mean"], "tier_launches": tier_launches["dense_mean"],
+         "cli_launches": cli_launches["dense_mean"],
          "max_abs_err": dense_err, "ms": times["dense_ms"], "plain_ms": times["dense_plain_ms"],
          "bound_ms": dense_bound, "bound_by": dense_by, "library_ms": None},
         *({**k, "serving_launches": serving_launches[k["name"]], "lifecycle_launches": lifecycle_launches[k["name"]],
            "parallel_launches": parallel_launches[k["name"]], "fleet_launches": fleet_launches[k["name"]],
-           "stream_launches": stream_launches[k["name"]], "tier_launches": tier_launches[k["name"]]}
+           "stream_launches": stream_launches[k["name"]], "tier_launches": tier_launches[k["name"]],
+           "cli_launches": cli_launches[k["name"]]}
           for k in ext_kernels),
     ]})
     print(smi, flush=True)

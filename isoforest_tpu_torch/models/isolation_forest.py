@@ -59,6 +59,7 @@ from ..ops.tree_growth import StandardForest, grow_forest
 from ..telemetry.metrics import counter as _telemetry_counter
 from ..telemetry.spans import span as _telemetry_span
 from ..utils.device import resolve_device
+from ..utils.logging import phase
 from ..utils.math import height_limit
 from ..utils.params import IsolationForestParams, resolve_extension_level, resolve_params
 from ..utils.validation import (
@@ -375,8 +376,10 @@ def _grow_and_threshold(p, X, resolved, extended: bool, key, checkpoint, baselin
     h = height_limit(resolved.num_samples)
 
     def grow(level):
-        return _grow(key, X, params=p, resolved=resolved, height=h, extension_level=level, checkpoint=checkpoint,
-                     bag=bag, sampler_sha256=sampler_sha256, mesh=mesh)
+        # the JAX package's phase span names
+        with phase("extended_isolation_forest.fit.grow" if extended else "isolation_forest.fit.grow"):
+            return _grow(key, X, params=p, resolved=resolved, height=h, extension_level=level,
+                         checkpoint=checkpoint, bag=bag, sampler_sha256=sampler_sha256, mesh=mesh)
 
     common = dict(params=p, num_samples=resolved.num_samples, num_features=resolved.num_features,
                   total_num_features=int(X.shape[1]))
@@ -512,9 +515,10 @@ def _compute_and_set_threshold(model: "IsolationForestModel", X: torch.Tensor, m
     p = model.params
     if p.contamination == 0.0:
         return
-    scores = model.score(X, nonfinite="allow", strategy="walk", mesh=mesh)  # the policy was applied at fit
-    thr = contamination_threshold(scores, p.contamination, p.contamination_error)
-    model.set_outlier_score_threshold(thr)
+    with phase("isolation_forest.fit.threshold"):
+        scores = model.score(X, nonfinite="allow", strategy="walk", mesh=mesh)  # the policy was applied at fit
+        thr = contamination_threshold(scores, p.contamination, p.contamination_error)
+        model.set_outlier_score_threshold(thr)
     observed = observed_contamination(scores, thr)
     allowed = p.contamination_error if p.contamination_error > 0 else 0.01 * p.contamination
     if abs(observed - p.contamination) > allowed:

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 SUBPACKAGES = ("", ".telemetry", ".utils", ".ops", ".resilience", ".serving", ".lifecycle", ".tuning",
-               ".parallel", ".models", ".io", ".autopilot", ".fleet", ".stream", ".replication")
+               ".parallel", ".models", ".io", ".autopilot", ".fleet", ".stream", ".replication", ".onnx")
 
 _LAYOUT = ("the port builds its tables per strategy (ops/traversal.py scoring_tables), "
            "not the JAX package's packed layout")
@@ -67,7 +67,7 @@ def test_the_ports_own_all_resolves(sub):
 
 def test_the_new_packages_are_in_the_import_check():
     root = pathlib.Path(__file__).resolve().parent.parent / "isoforest_tpu_torch"
-    for name in ("autopilot", "fleet", "stream", "replication"):
+    for name in ("autopilot", "fleet", "stream", "replication", "onnx"):
         assert sorted(p.name for p in (root / name).glob("*.py")), name
 
 

@@ -128,6 +128,30 @@ def test_fit_spans(tmp_path):
     assert [r.attrs["rows"] for r in spans.records("fit.baseline")] == [500]
 
 
+@pytest.mark.parametrize("extended", [False, True], ids=["standard", "extended"])
+def test_fit_records_the_jax_packages_phase_spans(extended):
+    """The JAX package's fit phases (``utils/logging.py::phase``): the growth
+    under the model family's name, and the threshold pass when a
+    contamination is set."""
+    from isoforest_tpu.models import ExtendedIsolationForest as JaxExtended
+    from isoforest_tpu.models import IsolationForest as JaxEstimator
+    from isoforest_tpu_torch import ExtendedIsolationForest, IsolationForest
+
+    X = np.random.default_rng(0).normal(size=(500, 4)).astype(np.float32)
+    kw = dict(num_estimators=4, max_samples=64.0, contamination=0.05, random_seed=1)
+    port_cls, jax_cls = (ExtendedIsolationForest, JaxExtended) if extended else (IsolationForest, JaxEstimator)
+    spans.reset_spans()
+    port_cls(**kw, device="cpu").fit(X, baseline=False)
+    jax_spans.reset_spans()
+    jax_cls(**kw).fit(X, baseline=False)
+    phases = ("isolation_forest.fit.grow", "extended_isolation_forest.fit.grow", "isolation_forest.fit.threshold")
+    port_names = {r.name for r in spans.records()}
+    jax_names = {r.name for r in jax_spans.records()}
+    assert [n for n in phases if n in port_names] == [n for n in phases if n in jax_names]
+    grow = phases[1] if extended else phases[0]
+    assert len(spans.records(grow)) == 1 and len(spans.records(phases[2])) == 1
+
+
 def test_disabled_spans_are_a_shared_no_op():
     spans.reset_spans()
     telemetry.disable()
