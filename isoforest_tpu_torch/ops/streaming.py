@@ -39,12 +39,18 @@ runs the same schedule with plain host buffers. When staging is unavailable
 streamed call takes the ``pipeline_fallback`` rung once and copies each chunk
 synchronously: scores stay bitwise equal, only the overlap is lost.
 
-Telemetry: ``isoforest_pipeline_chunks_total{site}``,
-``isoforest_pipeline_h2d_seconds{site}`` (host-blocking staging seconds per
-streamed execution: waits on a buffer's last copy, packs, enqueues),
+Telemetry: one ``pipeline.chunk`` span per chunk, marked in stages
+(``telemetry/spans.py``): ``wait`` (the host waits on the last copy out of
+its pinned buffer), ``pack`` (the rows into that buffer), ``copy`` (the copy's
+enqueue on the side stream; unstaged, the synchronous copy or the view of
+resident rows) and ``launch`` (the non-finite count, the kernel, the copy
+into the result and the buffer's read event). Per streamed execution:
+``isoforest_pipeline_stage_seconds{site, stage}`` (each stage's host seconds
+summed over the chunks), ``isoforest_pipeline_h2d_seconds{site}`` (the
+host-blocking staging seconds, ``wait`` + ``pack`` + ``copy``),
 ``isoforest_pipeline_overlap_efficiency{site}`` (1 - that / the execution's
-host wall time), one ``pipeline.run`` event per streamed execution and one
-``pipeline.chunk`` span per chunk.
+host wall time), ``isoforest_pipeline_chunks_total{site}`` and one
+``pipeline.run`` event.
 """
 
 from __future__ import annotations
@@ -88,6 +94,12 @@ _PIPELINE_H2D = _telemetry_histogram(
     "isoforest_pipeline_h2d_seconds",
     "Host-blocking host->device staging seconds per streamed execution",
     labelnames=("site",),
+)
+_PIPELINE_STAGE = _telemetry_histogram(
+    "isoforest_pipeline_stage_seconds",
+    "Host seconds per streamed execution in each stage of its chunks (wait, pack, copy, launch), "
+    "summed over the chunks",
+    labelnames=("site", "stage"),
 )
 _PIPELINE_OVERLAP = _telemetry_gauge(
     "isoforest_pipeline_overlap_efficiency",
@@ -166,18 +178,24 @@ class _Staging:
         self.copied = [torch.cuda.Event() for _ in range(2)] if cuda else None
         self.consumed = [torch.cuda.Event() for _ in range(2)] if cuda else None
 
-    def stage(self, slot: int, rows: torch.Tensor, stream) -> torch.Tensor:
+    def stage(self, slot: int, rows: torch.Tensor, stream, mark: Callable[[str], None]) -> torch.Tensor:
         """Pack ``rows`` into host buffer ``slot``, copy it into device
         buffer ``slot`` and make ``stream`` wait for the copy; the device
-        rows, ``[len(rows), F]``."""
+        rows, ``[len(rows), F]``. ``mark`` starts each stage (``wait``,
+        ``pack``, ``copy``)."""
         n = rows.shape[0]
         host, dev = self.host[slot][:n], self.dev[slot][:n]
+        mark("wait")
         if self.copy_stream is None:
+            mark("pack")
             host.copy_(rows)
+            mark("copy")
             dev.copy_(host)
             return dev
         self.copied[slot].synchronize()  # hazard 1: the last copy out of this buffer is done
+        mark("pack")
         host.copy_(rows)
+        mark("copy")
         self.copy_stream.wait_event(self.consumed[slot])  # hazard 2: its last reader has run
         with torch.cuda.stream(self.copy_stream):
             dev.copy_(host, non_blocking=True)
@@ -329,34 +347,36 @@ class StreamingExecutor:
             # both host buffers, live for the run: the resource plane's watermark
             _resources.note_host_staging(self._site, 2 * chunk * int(X.shape[1]) * 4)
         t_start = time.perf_counter()
-        h2d_s = 0.0
+        stage_ns = {}  # stage -> host ns summed over the chunks (telemetry on)
         n_chunks = 0
         try:
             for start in range(0, n, chunk):
                 stop = min(start + chunk, n)
                 slot = n_chunks % 2
                 with _span("pipeline.chunk", site=self._site, index=n_chunks, rows=stop - start) as csp:
-                    t0 = time.perf_counter()
                     if staging is not None:
-                        xc = staging.stage(slot, X[start:stop], stream)
+                        xc = staging.stage(slot, X[start:stop], stream, csp.mark)
                     else:
+                        csp.mark("copy")
                         xc = X[start:stop].to(dev)  # resident rows: a view; else a synchronous copy
-                    chunk_h2d = time.perf_counter() - t0
-                    h2d_s += chunk_h2d
-                    t1 = time.perf_counter()
+                    csp.mark("launch")
                     if bad is not None:
                         bad += count_non_finite(xc)
                     out[start:stop].copy_(self._run_chunk(xc))
                     if staging is not None:
                         staging.read_by(slot, stream)
-                    csp.set_attrs(h2d_s=round(chunk_h2d, 6), compute_dispatch_s=round(time.perf_counter() - t1, 6))
+                for name, begin, end in csp.stages:
+                    stage_ns[name] = stage_ns.get(name, 0) + end - begin
                 n_chunks += 1
         finally:
             if cached:
                 staging.lock.release()
         total_s = max(time.perf_counter() - t_start, 1e-9)
         if _telemetry_state.enabled():
+            h2d_s = sum(stage_ns.get(name, 0) for name in ("wait", "pack", "copy")) / 1e9
             eff = max(0.0, min(1.0, 1.0 - h2d_s / total_s))
+            for name, ns in stage_ns.items():
+                _PIPELINE_STAGE.observe(ns / 1e9, site=self._site, stage=name)
             _PIPELINE_CHUNKS.inc(n_chunks, site=self._site)
             _PIPELINE_H2D.observe(h2d_s, site=self._site)
             _PIPELINE_OVERLAP.set(eff, site=self._site)

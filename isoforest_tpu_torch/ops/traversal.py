@@ -453,7 +453,9 @@ def score_matrix(
     pipeline: Optional[bool] = None,
 ) -> torch.Tensor:
     """Outlier scores ``2^(-E[h]/c(num_samples))`` of an ``[N, F]`` matrix,
-    ``f32[N]`` on ``device``, inside a ``score_matrix`` span.
+    ``f32[N]`` on ``device``, inside a ``score_matrix`` span marked in
+    stages: ``prepare`` (conversion, width checks, the strategy, the
+    executor), ``execute`` and ``finish`` (the counters, the ``exp2``).
 
     ``forest``: a :class:`StandardForest` or an :class:`ExtendedForest`.
     ``X`` (tensor, array or DataFrame) is converted and checked by
@@ -483,7 +485,8 @@ def score_matrix(
     ``"q16"`` meets a forest outside the quantized plane's fences (the
     ``q16_unsupported`` rung, which otherwise scores with the walk).
     """
-    with _span("score_matrix", requested_strategy=strategy):
+    with _span("score_matrix", requested_strategy=strategy) as sp:
+        sp.mark("prepare")
         dev = resolve_device(device)
         check_nonfinite_policy(nonfinite)
         X, _ = extract_features(X, nonfinite="allow")
@@ -526,8 +529,10 @@ def score_matrix(
             forest, strategy, device=dev, cache=cache, rows=n, chunk_rows=chunk, pipeline=pipeline,
             site="score_matrix", timeout_s=timeout_s, nonfinite=nonfinite, nonfinite_counts=None,
         )
+        sp.mark("execute")
         t0 = time.perf_counter()
         path_lengths = executor.execute(X)
+        sp.mark("finish")
         if _scoring_metrics_on():
             _SCORING_SECONDS.observe(time.perf_counter() - t0, strategy=strategy)
             _SCORED_ROWS_TOTAL.inc(n, strategy=strategy)

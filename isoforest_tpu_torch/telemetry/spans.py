@@ -31,14 +31,25 @@ and roots that declare links, and one in ``sample_every`` of the rest
 (:func:`set_trace_policy`); bounds drop with exact accounting
 (:func:`trace_stats`, ``isoforest_traces_total{outcome=}``).
 
-The one change from the JAX package: a span is also a
+The changes from the JAX package: a span is also a
 ``torch.profiler.record_function`` range (the JAX package's
 ``jax.profiler.TraceAnnotation``), so a torch.profiler trace shows the same
 names nested as the spans are. The port annotates every span unless
-``annotate=False``, and only while a profiler records.
+``annotate=False``, and only while a profiler records. And a span can be cut
+into **stages** without adding records: ``sp.mark("pack")`` starts the stage
+``pack`` at a ``time.time_ns()`` reading, and it ends at the next mark or at
+the span's end, read on the same clock. A span that was marked records
+``stages=[[name, start_ns, end_ns], ...]`` (integer Unix nanoseconds, the
+clock ``torch.profiler`` maps its events to) among its attributes;
+``start_unix_s`` comes from the same start reading, so within a span
+start <= first stage start <= ... <= last stage end <= end. The executor marks
+``wait``/``pack``/``copy``/``launch`` in each ``pipeline.chunk`` span
+(``ops/streaming.py``) and ``score_matrix`` marks
+``prepare``/``execute``/``finish``.
 
 When telemetry is disabled (:mod:`._state`) :func:`span` returns a shared
-no-op context manager: no clocks, no locks, no ids, no profiler range.
+no-op context manager: no clocks, no locks, no ids, no profiler range, no
+stages.
 """
 
 from __future__ import annotations
@@ -229,12 +240,16 @@ class _NullSpan:
     trace_id = None
     span_id = None
     parent_id = None
+    stages = ()
 
     @property
     def context(self) -> None:
         return None
 
     def set_attrs(self, **attrs: object) -> None:
+        pass
+
+    def mark(self, stage: str) -> None:
         pass
 
     def __enter__(self) -> "_NullSpan":
@@ -260,7 +275,7 @@ def _annotation(name: str):
 class _Span:
     __slots__ = (
         "name", "attrs", "parent", "depth", "start_unix_s",
-        "trace_id", "span_id", "parent_id", "links",
+        "trace_id", "span_id", "parent_id", "links", "stages",
         "_t0", "_p0", "_annotation_cm",
     )
 
@@ -274,6 +289,7 @@ class _Span:
         self.name = name
         self.attrs = attrs
         self.links = links
+        self.stages: List[list] = []  # [name, start_ns, end_ns]; the last one's end is set at exit
         self._annotation_cm = _annotation(name) if annotate else None
 
     @property
@@ -285,6 +301,14 @@ class _Span:
         """Merge attributes into the span after entry — for values only
         known mid-block (resolved strategy, generation, queue wait)."""
         self.attrs.update(attrs)
+
+    def mark(self, stage: str) -> None:
+        """Start stage ``stage`` now; it ends at the next mark or at the
+        span's end."""
+        now = time.time_ns()
+        if self.stages:
+            self.stages[-1][2] = now
+        self.stages.append([stage, now, None])
 
     def __enter__(self) -> "_Span":
         stack = _stack()
@@ -308,12 +332,15 @@ class _Span:
         stack.append(self)
         if self._annotation_cm is not None:
             self._annotation_cm.__enter__()
-        self.start_unix_s = time.time()
+        self.start_unix_s = time.time_ns() / 1e9
         self._p0 = time.process_time()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        if self.stages:
+            self.stages[-1][2] = time.time_ns()
+            self.attrs["stages"] = self.stages
         wall = time.perf_counter() - self._t0
         process = time.process_time() - self._p0
         if self._annotation_cm is not None:
