@@ -615,6 +615,7 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     for name in eif_paths:
         ext_path.launches[name] = 0
     ext_dense.ext_dense_mean.launches = 0
+    ext_dense.ext_dense_mean.launches_by_top = {}
     t0 = time.perf_counter()
     s_walk = model.score(X_big, strategy="walk")
     torch.cuda.synchronize()
@@ -627,6 +628,8 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
     t3 = time.perf_counter()
     launches = {**{name: ext_path.launches[name] for name in eif_paths},
                 "ext_dense_mean": ext_dense.ext_dense_mean.launches}
+    # by the levels computed as a product: the height means the fully dense form
+    dense_by_top = dict(ext_dense.ext_dense_mean.launches_by_top)
     # the first call builds the table and pins 2 x 574 MB of staging; a warm one does neither
     high_warm_s = synced(lambda: score_matrix(f5, X5_host, 256, strategy="dense", cache=f5_cache))[1]
     require(all(v > 0 for v in launches.values()), f"an EIF kernel did not launch: {launches}")
@@ -872,7 +875,8 @@ def eif_phases(dev, rng, X_m, y_m, X_big) -> list:
          "rows": n, "plain_rows": n},
         {**entry, "name": "ext_dense_mean", "source": "isoforest_tpu_torch/csrc/ext_gemm.cu",
          "replaces": "isoforest_tpu/ops/pallas_traversal.py:331",
-         "launches": launches["ext_dense_mean"], "max_abs_err": dense_err, "ms": times["dense_ms"],
+         "launches": launches["ext_dense_mean"], "launches_by_top": dense_by_top, "max_abs_err": dense_err,
+         "ms": times["dense_ms"],
          "plain_ms": times["dense_plain_ms"], "bound_ms": dense_bound, "bound_by": dense_by,
          "matmul_ms": times["dense_matmul_ms"], "streamed_1m_call_ms": (t3 - t2) * 1e3,
          "streamed_1m_warm_call_ms": high_warm_s * 1e3,

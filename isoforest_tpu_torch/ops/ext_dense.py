@@ -14,7 +14,10 @@ accumulate ``pl / T`` tree by tree, as the Pallas kernels' source does
 on each row's path, from the compact records of :mod:`.ext_path` (built by
 :func:`sparse_path_records`), with the same dots: only the bits on the path
 are read, so the result is the same bit for bit, and the kernel is held to
-the every-slot plain version on the card.
+the every-slot plain version on the card. The dense-table kernel computes
+every slot of a tree's top levels as a product and, below them, only the
+node each row's path reaches (:func:`dense_top_levels`), and is held to
+its every-slot plain version the same way.
 
 Each dot is ``acc = fma(x[f], w, acc)`` from 0 over the node's coordinates
 in ascending feature order, duplicates merged as ``np.add.at`` merges them:
@@ -51,7 +54,19 @@ SPARSE_K_MAX = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_DENSE_SIGNATURES = {"ext_dense_mean": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P)}
+_DENSE_SIGNATURES = {"ext_dense_mean": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P)}
+
+# The dense-table kernel's two forms (csrc/ext_gemm.cu). Its dense-top form
+# computes the top DENSE_TOP levels of a tree as a product (2 for a tree of
+# height 3) and evaluates only each row's node below them: measured on an
+# H100, 3 is the fastest of the depths it has at every height from 4 to 10
+# (PERF.md §6, tools/torch_port_kernel_paths.py). Trees of height <= 2 have
+# no level below a top of 2, and rows wider than PATH_MAX_WIDTH (the
+# kernel's kPathMaxWidth) do not fit in shared memory: both take the fully
+# dense form, which computes every internal slot.
+DENSE_TOP = 3
+PATH_MAX_WIDTH = 384
+DENSE_TOPS = (2, 3, 4, 5)  # the dense-top depths the kernel has (kMinTop .. kMaxTop)
 
 # Bits of the dense table's ``kind`` (csrc/ext_gemm.cu): an internal node;
 # one with unused coordinates (the gather walk's x[0] * 0 term); one with an
@@ -83,11 +98,15 @@ class DenseHyperplaneTables(NamedTuple):
     elsewhere; ``weight`` f32 [T, W, M4], slot-minor, with ``W = 1 +
     max(index)`` and ``M4`` the ``2^h - 1`` internal-capable slots rounded
     up to 4: the merged weight of each present coordinate (``-0.0`` where it
-    is zero), ``+0.0`` where absent and in the padding."""
+    is zero), ``+0.0`` where absent and in the padding; ``node_weight`` f32
+    [T, 2^h - 1, W4], the same weights node-major, each node's row padded
+    with ``+0.0`` to ``W4``, ``W`` rounded up to 4 (the dense-table kernel's
+    path walk reads a node's row in 16-byte loads)."""
 
     value: torch.Tensor
     kind: torch.Tensor
     weight: torch.Tensor
+    node_weight: torch.Tensor
 
 
 def _common(forest: ExtendedForest):
@@ -187,11 +206,14 @@ def dense_hyperplane_table(forest: ExtendedForest) -> DenseHyperplaneTables:
     kind[:, :m_int] = np.where(internal, bits, 0)
     slot_minor = np.zeros((t_n, width, (m_int + 3) // 4 * 4), np.float32)
     slot_minor[:, :, :m_int] = W.transpose(0, 2, 1)
+    node_major = np.zeros((t_n, m_int, (width + 3) // 4 * 4), np.float32)
+    node_major[:, :, :width] = W
     dev = forest.device
     return DenseHyperplaneTables(
         value=value.contiguous().to(dev),
         kind=torch.from_numpy(kind).to(dev),
         weight=torch.from_numpy(slot_minor).to(dev),
+        node_weight=torch.from_numpy(node_major).to(dev),
     )
 
 
@@ -276,14 +298,16 @@ def ext_dense_mean(X: torch.Tensor, tables: DenseHyperplaneTables) -> torch.Tens
     """Mean path length over trees from the dense hyperplane table, ``f32[N]``.
 
     On a CUDA tensor this launches ``ext_dense_mean`` of
-    ``csrc/ext_gemm.cu`` and counts the launch in
-    ``ext_dense_mean.launches``; on a CPU tensor it runs
-    :func:`ext_dense_mean_plain`.
+    ``csrc/ext_gemm.cu`` in the form :func:`dense_top_levels` picks and
+    counts the launch in ``ext_dense_mean.launches`` and, by the levels
+    computed as a product, in ``ext_dense_mean.launches_by_top``; on a CPU
+    tensor it runs :func:`ext_dense_mean_plain`.
     """
     t_count, m = tables.value.shape
     width = tables.weight.shape[1] if tables.weight.dim() == 3 else 0
     m_int = (m + 1) // 2 - 1
-    _check_inputs(X, tables, (t_count, width, (m_int + 3) // 4 * 4), width)
+    _check_inputs(X, tables, {"weight": (t_count, width, (m_int + 3) // 4 * 4),
+                              "node_weight": (t_count, m_int, (width + 3) // 4 * 4)}, width)
     _check_height(height_of(m))
     if X.device.type == "cpu":
         return ext_dense_mean_plain(X, tables)
@@ -292,21 +316,35 @@ def ext_dense_mean(X: torch.Tensor, tables: DenseHyperplaneTables) -> torch.Tens
     if n == 0:
         return out
     lib = _build.load("ext_gemm", _DENSE_SIGNATURES)
+    h = height_of(m)
+    top = dense_top_levels(h, width)
     err = lib.ext_dense_mean(
         X.data_ptr(), n, f, tables.value.data_ptr(), tables.kind.data_ptr(),
-        tables.weight.data_ptr(), width, t_count, height_of(m),
+        tables.weight.data_ptr(), tables.node_weight.data_ptr(), width, t_count, h, top,
         out.data_ptr(), torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(err, "ext_dense_mean")
     ext_dense_mean.launches += 1
+    ext_dense_mean.launches_by_top[top] = ext_dense_mean.launches_by_top.get(top, 0) + 1
     return out
 
 
 ext_dense_mean.launches = 0
+ext_dense_mean.launches_by_top = {}
 
 
-def _check_inputs(X: torch.Tensor, tables: DenseHyperplaneTables, weight_shape, min_features: int) -> None:
-    """``value`` and ``kind`` take ``[T, M]``, ``weight`` ``weight_shape``."""
+def dense_top_levels(height: int, width: int) -> int:
+    """Levels of a tree of ``height`` whose every slot the dense-table
+    kernel computes as a product, at table width ``width``: ``height`` for
+    the fully dense form, else a depth of ``DENSE_TOPS`` below ``height``,
+    under which each row's dot is computed at the one node its path
+    reaches."""
+    top = min(DENSE_TOP, height - 1)
+    return top if top in DENSE_TOPS and width <= PATH_MAX_WIDTH else height
+
+
+def _check_inputs(X: torch.Tensor, tables: DenseHyperplaneTables, weight_shapes: dict, min_features: int) -> None:
+    """``value`` and ``kind`` take ``[T, M]``, the weights ``weight_shapes``."""
     if X.dtype != torch.float32 or X.dim() != 2 or not X.is_contiguous():
         raise ValueError(f"X must be a contiguous float32 [N, F] tensor, got {X.dtype} {tuple(X.shape)}")
     if X.shape[1] < 1:
@@ -315,7 +353,7 @@ def _check_inputs(X: torch.Tensor, tables: DenseHyperplaneTables, weight_shape, 
         raise ValueError(f"the EIF dense kernels run on 'cuda' or 'cpu' tensors, got {X.device}")
     plane = tables.value.shape
     for name, dtype, shape in (("value", torch.float32, plane), ("kind", torch.int32, plane),
-                               ("weight", torch.float32, tuple(weight_shape))):
+                               *((name, torch.float32, tuple(shape)) for name, shape in weight_shapes.items())):
         a = getattr(tables, name)
         if a.device != X.device or a.dtype != dtype or a.shape != shape or not a.is_contiguous():
             raise ValueError(

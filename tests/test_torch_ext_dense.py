@@ -25,6 +25,7 @@ blocks and divides once).
 from __future__ import annotations
 
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -205,6 +206,11 @@ def test_dense_table_is_the_jax_table_permuted(k, features, unused_p):
     np.testing.assert_array_equal(got[:, :, :m_int], want[:, position[:m_int], :width].transpose(0, 2, 1))
     assert not got[:, :, m_int:].any() and not want[:, :, width:].any()
     assert not want[:, position[m_int:]].any()  # leaf-level slots carry no weights
+    node_major = tables.node_weight.numpy()  # the same weights a node a row, padded to 4 features
+    assert node_major.shape == (t_n, m_int, (width + 3) // 4 * 4)
+    np.testing.assert_array_equal(node_major[:, :, :width].view(np.int32),
+                                  got[:, :, :m_int].transpose(0, 2, 1).view(np.int32))
+    assert not node_major[:, :, width:].view(np.int32).any()
 
 
 def _one_node_forest(coords, weights, offset, k, sizes=(2, 50)):
@@ -289,6 +295,29 @@ def test_height_fence():
         ext_dense.ext_dense_mean(X, ext_dense.dense_hyperplane_table(above))
 
 
+@pytest.mark.parametrize("height", range(0, 11))
+def test_dense_top_levels_at_every_height(height):
+    """The dense-table kernel's form at each height the dense strategy
+    serves: the fully dense form (``top`` = the height) where no dense top
+    the kernel has lies below the height, and for tables wider than the
+    resident tile; else ``DENSE_TOP`` levels, 2 at height 3."""
+    for width in (1, 33, 274, ext_dense.PATH_MAX_WIDTH):
+        top = ext_dense.dense_top_levels(height, width)
+        assert top == (height if height <= 2 else min(ext_dense.DENSE_TOP, height - 1))
+        assert top == height or (top in ext_dense.DENSE_TOPS and top < height)
+    assert ext_dense.dense_top_levels(height, ext_dense.PATH_MAX_WIDTH + 1) == height
+
+
+def test_dense_top_bounds_are_the_kernels():
+    """The host's bounds of the dense-top form are the CUDA source's."""
+    src = (pathlib.Path(ext_dense.__file__).parent.parent / "csrc" / "ext_gemm.cu").read_text()
+    const = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    const.update({name: int(v) for name, v in re.findall(r"(kMinTop|kMaxTop) = (\d+)", src)})
+    assert ext_dense.PATH_MAX_WIDTH == const["kPathMaxWidth"]
+    assert ext_dense.DENSE_TOPS == tuple(range(const["kMinTop"], const["kMaxTop"] + 1))
+    assert ext_dense.DENSE_TOP in ext_dense.DENSE_TOPS
+
+
 def test_plain_versions_on_cpu_count_no_launch():
     rng = np.random.default_rng(9)
     forest = extended_forest_from_arrays(*random_extended_forest(rng, 4, 4, 3, 2), device="cpu")
@@ -298,9 +327,9 @@ def test_plain_versions_on_cpu_count_no_launch():
     assert ext_path.launches == before
     assert torch.equal(got, ext_dense.ext_sparse_mean_plain(X, ext_dense.sparse_hyperplane_tables(forest)))
     tables = ext_dense.dense_hyperplane_table(forest)
-    before = ext_dense.ext_dense_mean.launches
+    before, by_top = ext_dense.ext_dense_mean.launches, dict(ext_dense.ext_dense_mean.launches_by_top)
     got = ext_dense.ext_dense_mean(X, tables)
-    assert ext_dense.ext_dense_mean.launches == before
+    assert ext_dense.ext_dense_mean.launches == before and ext_dense.ext_dense_mean.launches_by_top == by_top
     assert torch.equal(got, ext_dense.ext_dense_mean_plain(X, tables))
 
 

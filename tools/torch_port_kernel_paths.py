@@ -7,6 +7,7 @@ CUDA toolkit::
 
     python3 tools/torch_port_kernel_paths.py --extract-old REV   # where git is
     python3 tools/torch_port_kernel_paths.py
+    python3 tools/torch_port_kernel_paths.py --dense-table   # the dense-table kernel alone
 
 ``--extract-old REV`` writes the package and ``chip_smoke.py`` as they
 were at git revision ``REV`` to ``build/kernel_paths/old/`` and exits; the
@@ -38,15 +39,25 @@ memory, and that staged kernel with blocks of 512 threads instead of 1,024
 or reading x through L1 instead of its row tile; the standard dense kernel
 (``csrc/dense.cu``) with 8 warps a block instead of 4, and with its 32-row
 loop bounded by the warp's rows and unrolled 8 times instead of fully; the
-dense-table kernel (``csrc/ext_gemm.cu``) with 128-slot or 256-slot column
-tiles at every height instead of the width it picks from the tree, with
-192-slot tiles where it takes 256, held to the registers of two blocks an
-SM, with 8-feature chunks instead of 16, and with a 2-stage ring instead of
-3. The script swaps each variant into the port's wrapper and times it
-against the committed build at the same shapes (the path kernels on the
-mammography models and the same 1,000,000 rows; the dense-table kernel on
-a seeded F = k = 274 forest and 65,536 rows, the 128- and 256-slot tiles
-also at heights 7 and 10). The record layout is timed the same way with
+dense-table kernel (``csrc/ext_gemm.cu``) in its fully dense form with
+128-slot or 256-slot column tiles at every height instead of the width it
+picks from the tree, with 192-slot tiles where it takes 256, held to the
+registers of two blocks an SM, with 8-feature chunks instead of 16, and
+with a 2-stage ring instead of 3 (the last two in the dense-top form too),
+and in its dense-top form with 64 resident rows a block instead of 128, at
+one and at two blocks an SM, with its walk taking 16 trees a thread at
+once instead of 8, and with the walk's loop over 4-feature steps unrolled
+1 or 4 times instead of 2. The script swaps each variant into the port's
+wrapper and times it against the committed build at the same shapes (the
+path kernels on the mammography models and the same 1,000,000 rows; the
+dense-table kernel on seeded F = k = 274 forests of heights 7, 8 and 10
+and 65,536 rows, and on the forest and 2^19 rows the benchmark's
+``arrhythmia-eif`` configuration makes from a seed, ``portbench/inputs.py``).
+The dense-table kernel's form is timed without an edit: at every height
+from 3 to 10 and on that cell's inputs, each dense-top depth it has and its
+fully dense form against the form the wrapper picks
+(``ops/ext_dense.py::dense_top_levels``). ``--dense-table`` runs only the
+dense-table kernel's measurements. The record layout is timed the same way with
 another table: the EIF path kernels' records with two terms and their i32
 feature indices to a chunk instead of three with 10-bit ones. Every
 variant must give the committed build's result bit for bit. Times are
@@ -86,15 +97,25 @@ EIF_MODEL = ROOT / "tests" / "resources" / "torch_port" / "mammography_eif" / "m
 MAMMOGRAPHY = ROOT / "tests" / "resources" / "mammography.csv"
 ROWS, HIGH_DIM_ROWS, SEED = 1_000_000, 65_536, 0
 
-# the dense-table kernel's choice of column-tile width
-GEMM_TILES = "return m4 > 128 ? launch<4>"
+# the dense-table kernel's choice of column-tile width in its fully dense
+# form, and its dense-top form's rows a block
+GEMM_TILES = "return m4 > 128 ? launch<4, 0>"
+PATH_ROWS = "constexpr int kPathRows = 128;"
+WALK_UNROLL = "#pragma unroll 2\n        for (int f = 0; f < w4; f += 4) {"
 # the path kernels of csrc/path_walk.cu, at the main path's shape
 EIF_PATH_CALLS = ("ext_walk_sum", "ext_sparse_mean")
 PATH_CALLS = ("walk_sum",) + EIF_PATH_CALLS
 # rows of the small-batch switch measurement
 SWITCH_ROWS = (1, 64, 1024, 4096, 16384, 65536, 98304, 131072, 262144)
-# the dense-table kernel at every height the tool times it
-GEMM_HEIGHTS = ("ext_dense_mean_h7", "ext_dense_mean", "ext_dense_mean_h10")
+# the dense-table kernel at every height the tool times it, in the form the
+# wrapper picks, and in its fully dense form
+GEMM_HEIGHTS = ("ext_dense_mean_h7", "ext_dense_mean", "ext_dense_mean_h10", "ext_dense_mean_cell")
+GEMM_DENSE_HEIGHTS = ("ext_dense_mean_dense_h7", "ext_dense_mean_dense_h8", "ext_dense_mean_dense_h10")
+# heights at which every dense-top depth is timed against the committed one
+TOP_HEIGHTS = (3, 4, 5, 6, 7, 8, 9, 10)
+# the benchmark's cell arrhythmia-eif.staged-1m: its forest and one chunk of
+# its rows, from a seed
+CELL, CELL_SEED, CELL_ROWS = "arrhythmia-eif", 2147483701, 1 << 19
 
 # The bulk path kernel's walk of one row a thread, and the same walk of two
 # rows a thread, interleaved level by level (a finished row steps on as a
@@ -191,17 +212,35 @@ VARIANTS = {
     "dense_rows_loop_unrolled_8": ("dense", ("dense_mean",), [
         ("#pragma unroll\n        for (int j = 0; j < 32; ++j) {", "#pragma unroll 8\n        for (int j = 0; j < rows; ++j) {"),
     ]),
-    "gemm_128_slot_tiles": ("ext_gemm", GEMM_HEIGHTS, [(GEMM_TILES, "return false ? launch<4>")]),
-    "gemm_256_slot_tiles": ("ext_gemm", GEMM_HEIGHTS, [(GEMM_TILES, "return true ? launch<4>")]),
+    # the fully dense form: its column-tile widths, registers, chunks and ring
+    "gemm_128_slot_tiles": ("ext_gemm", GEMM_DENSE_HEIGHTS, [(GEMM_TILES, "return false ? launch<4, 0>")]),
+    "gemm_256_slot_tiles": ("ext_gemm", GEMM_DENSE_HEIGHTS, [(GEMM_TILES, "return true ? launch<4, 0>")]),
     # h = 8 only: at h = 10 its sixth tile ends at slot 1151, past a row's 32 words of bits
-    "gemm_192_slot_tiles": ("ext_gemm", ("ext_dense_mean",), [(GEMM_TILES, "return m4 > 128 ? launch<3>")]),
-    "gemm_two_blocks_per_sm": ("ext_gemm", ("ext_dense_mean",), [
+    "gemm_192_slot_tiles": ("ext_gemm", ("ext_dense_mean_dense_h8",), [(GEMM_TILES, "return m4 > 128 ? launch<3, 0>")]),
+    "gemm_two_blocks_per_sm": ("ext_gemm", ("ext_dense_mean_dense_h8",), [
         ("__launch_bounds__(kThreads, 1)", "__launch_bounds__(kThreads, 2)"),
     ]),
-    "gemm_8_feature_chunks": ("ext_gemm", ("ext_dense_mean",), [
+    "gemm_8_feature_chunks": ("ext_gemm", ("ext_dense_mean_dense_h8", "ext_dense_mean"), [
         ("constexpr int kBK = 16;", "constexpr int kBK = 8;"),
     ]),
-    "gemm_2_stages": ("ext_gemm", ("ext_dense_mean",), [("constexpr int kStages = 3;", "constexpr int kStages = 2;")]),
+    "gemm_2_stages": ("ext_gemm", ("ext_dense_mean_dense_h8", "ext_dense_mean"),
+                      [("constexpr int kStages = 3;", "constexpr int kStages = 2;")]),
+    # the dense-top form: 64 resident rows a block instead of 128 (four
+    # threads a row), at one and at two blocks an SM; the walk with 16
+    # trees a thread instead of 8 (the resident tile then fits up to 352
+    # features), and its loop over 4-feature steps unrolled 1 or 4 times
+    # instead of 2
+    "gemm_path_64_rows": ("ext_gemm", GEMM_HEIGHTS, [(PATH_ROWS, "constexpr int kPathRows = 64;")]),
+    "gemm_path_64_rows_two_blocks": ("ext_gemm", GEMM_HEIGHTS, [
+        (PATH_ROWS, "constexpr int kPathRows = 64;"),
+        ("__launch_bounds__(kThreads, 1)", "__launch_bounds__(kThreads, 2)"),
+    ]),
+    "gemm_walk_16_chains": ("ext_gemm", GEMM_HEIGHTS, [
+        ("constexpr int kWalkChains = 8;", "constexpr int kWalkChains = 16;"),
+        ("constexpr int kPathMaxWidth = 384;", "constexpr int kPathMaxWidth = 352;"),
+    ]),
+    "gemm_walk_unroll_1": ("ext_gemm", GEMM_HEIGHTS, [(WALK_UNROLL, WALK_UNROLL.replace("unroll 2", "unroll 1"))]),
+    "gemm_walk_unroll_4": ("ext_gemm", GEMM_HEIGHTS, [(WALK_UNROLL, WALK_UNROLL.replace("unroll 2", "unroll 4"))]),
 }
 
 def emit(obj) -> None:
@@ -251,9 +290,10 @@ def serving_in_turns(rounds: int = 3) -> None:
         for model in runs["old"][0] for key in runs["old"][0][model]}})
 
 
-def build_variants() -> dict:
+def build_variants(dense_table_only: bool = False) -> dict:
     """``{variant: path}`` of the libraries (the edited variants and the
-    earlier designs, ``old_walk`` and ``old_ext_walk``), all nvcc
+    earlier designs, ``old_walk`` and ``old_ext_walk``; only the
+    dense-table kernel's variants when ``dense_table_only``), all nvcc
     started together. A variant that does not build is reported and left
     out; an earlier design that does not build stops the run."""
     from isoforest_tpu_torch.ops import _build
@@ -261,6 +301,8 @@ def build_variants() -> dict:
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     sources = {}
     for variant, (name, _, edits) in VARIANTS.items():
+        if dense_table_only and name != "ext_gemm":
+            continue
         edited = (_build.CSRC_DIR / _build.SOURCES[name]).read_text()
         for old, new in edits:
             if edited.count(old) != 1:
@@ -269,7 +311,7 @@ def build_variants() -> dict:
         src = VARIANT_DIR / f"{name}-{variant}.cu"
         src.write_text(edited)
         sources[variant] = src
-    for name in OLD_SOURCES:
+    for name in () if dense_table_only else OLD_SOURCES:
         src = OLD_TREE / "isoforest_tpu_torch" / "csrc" / f"{name}.cu"
         if not src.is_file():
             raise SystemExit(f"{src} is missing: run with --extract-old REV where git is first")
@@ -367,13 +409,73 @@ def kernel_calls(X_big, std_model, eif_model) -> dict:
     calls["ext_walk_sum_i32"] = (lambda: ext_walk.ext_walk_sum(Xd, wide_wt), ext_path.SIGNATURES, 9, rows_shape)
     calls["ext_sparse_mean_i32"] = (lambda: ext_dense.ext_sparse_mean(Xd, wide_st), ext_path.SIGNATURES, 9,
                                     rows_shape)
-    for height in (7, 10):
-        table = ext_dense.dense_hyperplane_table(
-            extended_forest_from_arrays(*random_extended_forest(rng, 100, height, 274, 274, split_p=1.0)))
-        calls[f"ext_dense_mean_h{height}"] = (lambda table=table: ext_dense.ext_dense_mean(X5, table),
-                                              ext_dense._DENSE_SIGNATURES, 3,
-                                              {"rows": HIGH_DIM_ROWS, "features": 274, "height": height})
+    gemm_tables = {8: dt}
+    for height in TOP_HEIGHTS:
+        if height not in gemm_tables:
+            gemm_tables[height] = ext_dense.dense_hyperplane_table(
+                extended_forest_from_arrays(*random_extended_forest(rng, 100, height, 274, 274, split_p=1.0)))
+    for height, table in sorted(gemm_tables.items()):
+        shape = {"rows": HIGH_DIM_ROWS, "features": 274, "height": height}
+        gemm = (lambda table=table: ext_dense.ext_dense_mean(X5, table), ext_dense._DENSE_SIGNATURES, 3, shape)
+        calls[f"ext_dense_mean_sweep_h{height}"] = gemm
+        if height in (7, 10):
+            calls[f"ext_dense_mean_h{height}"] = gemm
+        if height in (7, 8, 10):
+            calls[f"ext_dense_mean_dense_h{height}"] = (with_top(height, gemm[0]), ext_dense._DENSE_SIGNATURES, 3,
+                                                        {**shape, "top": height})
+    cell_forest, X_cell = cell_inputs(dev)
+    cell_table = ext_dense.dense_hyperplane_table(cell_forest)
+    calls["ext_dense_mean_cell"] = (lambda: ext_dense.ext_dense_mean(X_cell, cell_table), ext_dense._DENSE_SIGNATURES,
+                                    3, {"rows": CELL_ROWS, "features": X_cell.shape[1], "height": cell_forest.height,
+                                        "forest": f"{CELL} seed {CELL_SEED}"})
     return calls, Xd, {"walk_sum": std_wt, "ext_walk_sum": wt, "ext_sparse_mean": st}
+
+
+def cell_inputs(device):
+    """The forest and ``CELL_ROWS`` scored rows of the benchmark's
+    configuration ``CELL`` at seed ``CELL_SEED``, as ``portbench/inputs.py``
+    makes them, on ``device``."""
+    from isoforest_tpu_torch.io.interop import extended_forest_from_arrays
+    from portbench import inputs, spec
+
+    config = spec.load_json(ROOT / "portbench" / "configs" / f"{CELL}.json")
+    arrays = inputs.grow_forest(config, seed=CELL_SEED, device=device)
+    forest = extended_forest_from_arrays(arrays["indices"], arrays["weights"], arrays["offset"],
+                                         arrays["num_instances"], device=device)
+    return forest, inputs.scored_rows(config, CELL_ROWS, seed=CELL_SEED, device=device, place="device")
+
+
+def with_top(top: int, call):
+    """``call`` with the dense-table kernel's form forced to ``top``
+    dense levels (``top`` = the height: the fully dense form)."""
+    from isoforest_tpu_torch.ops import ext_dense
+
+    def run():
+        chosen = ext_dense.dense_top_levels
+        ext_dense.dense_top_levels = lambda height, width: top
+        try:
+            return call()
+        finally:
+            ext_dense.dense_top_levels = chosen
+
+    return run
+
+
+def compare_top_levels(calls) -> None:
+    """The dense-table kernel at each height of ``TOP_HEIGHTS`` and on the
+    benchmark cell's forest and rows, with every dense-top depth it has,
+    and in its fully dense form, each against the form the wrapper picks,
+    in turns, bitwise equal."""
+    from isoforest_tpu_torch.ops import ext_dense
+
+    for name in (*(f"ext_dense_mean_sweep_h{h}" for h in TOP_HEIGHTS), "ext_dense_mean_cell"):
+        call, _, reps, shape = calls[name]
+        height = shape["height"]
+        committed = ext_dense.dense_top_levels(height, shape["features"])
+        for top in (height, *(t for t in ext_dense.DENSE_TOPS if t < height)):
+            if top != committed:
+                emit({"kernel": "ext_dense_mean", **shape, "committed_top": committed, "variant_top": top,
+                      **in_turns("committed", call, "variant", with_top(top, call), reps)})
 
 
 def with_i32_indices(p):
@@ -490,7 +592,8 @@ def compare_paths(libs, calls) -> None:
             result = in_turns("committed", with_lib(name, committed, call), "variant", with_lib(name, lib, call),
                               reps)
             _build._LIBS[name] = committed
-            emit({"kernel": call_name.split("_h")[0], "variant": variant, **shape, **result})
+            emit({"kernel": "ext_dense_mean" if name == "ext_gemm" else call_name, "call": call_name,
+                  "variant": variant, **shape, **result})
 
 
 def trace_copies(X_big, std_model, eif_model) -> None:
@@ -522,6 +625,7 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--extract-old":
         extract_old(sys.argv[2])
         return 0
+    dense_table_only = sys.argv[1:] == ["--dense-table"]
     import numpy as np
     import torch
 
@@ -534,7 +638,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    libs = build_variants()
+    libs = build_variants(dense_table_only)
     emit({"phase": "build_variants", "wall_s": time.perf_counter() - t0, "variants": len(libs)})
     data = np.loadtxt(MAMMOGRAPHY, delimiter=",", comments="#").astype(np.float32)
     X_m = data[:, :-1]
@@ -543,14 +647,17 @@ def main() -> int:
     jitter = rng.normal(0.0, 0.01, (ROWS, X_m.shape[1])).astype(np.float32)
     X_big = (X_m[idx] + jitter * X_m.std(axis=0)).astype(np.float32)
     std_model, eif_model = load_model(str(STD_MODEL)), load_model(str(EIF_MODEL))
-    trace_copies(X_big, std_model, eif_model)
+    if not dense_table_only:
+        trace_copies(X_big, std_model, eif_model)
     _build.build()
     calls, Xd, tables = kernel_calls(X_big, std_model, eif_model)
-    compare_designs(libs, calls, Xd, std_model, tables)
+    compare_top_levels(calls)
     compare_paths(libs, calls)
-    compare_layouts(calls)
-    switch_point(Xd, tables)
-    serving_in_turns()
+    if not dense_table_only:
+        compare_designs(libs, calls, Xd, std_model, tables)
+        compare_layouts(calls)
+        switch_point(Xd, tables)
+        serving_in_turns()
     print(smi, flush=True)
     return 0
 
