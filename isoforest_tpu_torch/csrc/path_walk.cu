@@ -82,8 +82,15 @@
 //    records once and read every level from shared memory
 //    (walk_staged_kernel); the same walk with its records through __ldg
 //    measured 1.13x slower (L1 misses and L1's longer latency are not told
-//    apart). A larger forest, a wider row or fewer rows take the core's
-//    bulk kernel.
+//    apart). On the H100 (228 KB of shared memory an SM, 1 KB of it
+//    reserved a block) a block may take 115,712 bytes, so the budget is
+//    (115,712 - 4,096 F) / 16 = 7,232 - 256 F records: 6,464 at F = 3 (a
+//    100-tree KDDCup99-HTTP forest holds about 6,300), none from F = 29
+//    on. A larger forest, a wider row or fewer rows take the core's bulk
+//    kernel (path_rows_kernel, records through __ldg): a 1000-tree HTTP
+//    forest's 61,000 records (1 MB) do. Each launch reports which of the
+//    four it took (Variant), and ops/ext_path.py counts it in
+//    isoforest_walk_launches_total{kernel, variant}.
 //  * Small batches (the host picks them below a measured row count,
 //    ops/ext_path.py): one warp per row, lanes over trees, 32 trees a
 //    round; each lane's path length is broadcast with __shfl_sync and every
@@ -255,31 +262,47 @@ walk_staged_kernel(const float* __restrict__ X, int n, int f_count, Records F, i
   }
 }
 
-// Launches the staged standard walk if two of its blocks, each with `bytes`
-// of shared memory, fit an SM (so that its 2 x kStageThreads threads fill
-// the SM) and the rows give every SM its two blocks; returns false,
-// launching nothing, if not.
-bool launch_staged(const float* X, int n, int f, const Records& F, int r, float* out, cudaStream_t s) {
-  if (f > kMaxTileFeatures) return false;
-  const size_t bytes = (size_t)r * sizeof(int4) + (size_t)f * kStageThreads * sizeof(float);
+// The launch a batch takes, as each entry reports it (ops/ext_path.py
+// names them in this order).
+enum Variant : int {
+  kStaged = 0,  // walk_staged_kernel: the records and the row tile in shared memory
+  kTile = 1,    // path_rows_kernel: the row tile in shared memory, records through __ldg
+  kGlobal = 2,  // path_rows_kernel: rows wider than kMaxTileFeatures, x[f] through L1
+  kTrees = 3,   // path_trees_kernel: one warp a row
+};
+
+// The staged standard walk's grid, `bytes` of shared memory a block: one
+// persistent block for each that fits an SM, where two of them fit (so that
+// their 2 x kStageThreads threads fill the SM) and the rows give every
+// block a tile; 0 where not.
+long long staged_blocks(int n, int f, int r, size_t* bytes) {
+  if (f > kMaxTileFeatures) return 0;
+  *bytes = (size_t)r * sizeof(int4) + (size_t)f * kStageThreads * sizeof(float);
   int dev = 0, optin = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || bytes > (size_t)optin ||
-      cudaFuncSetAttribute(walk_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) !=
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || *bytes > (size_t)optin ||
+      cudaFuncSetAttribute(walk_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes) !=
           cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, walk_staged_kernel, kStageThreads, bytes) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, walk_staged_kernel, kStageThreads, *bytes) !=
           cudaSuccess || per_sm < 2)
-    return false;
+    return 0;
   const long long blocks = (long long)per_sm * sms;
-  if (((long long)n + kStageThreads - 1) / kStageThreads < blocks) return false;
-  walk_staged_kernel<<<(int)blocks, kStageThreads, bytes, s>>>(X, n, f, F, r, out);
-  return true;
+  return ((long long)n + kStageThreads - 1) / kStageThreads < blocks ? 0 : blocks;
+}
+
+// The launch of n rows of width f over r records of k terms (k = 0: the
+// standard walk's header-only records); `staged` and `bytes` are the staged
+// walk's grid and shared memory where it is chosen.
+Variant choose(int n, int f, int r, int k, bool small, long long* staged, size_t* bytes) {
+  if (small) return kTrees;
+  if (k == 0 && (*staged = staged_blocks(n, f, r, bytes)) > 0) return kStaged;
+  return f <= kMaxTileFeatures ? kTile : kGlobal;
 }
 
 template <bool kMean, int kTerms>
-void launch_terms(const float* X, int n, int f, const Records& F, bool tree_parallel, float* out, cudaStream_t s) {
-  if (tree_parallel) {
+void launch_terms(const float* X, int n, int f, const Records& F, Variant v, float* out, cudaStream_t s) {
+  if (v == kTrees) {
     long long blocks = ((long long)n + kWarps - 1) / kWarps;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     path_trees_kernel<kMean, kTerms><<<(int)blocks, kThreads, 0, s>>>(X, n, f, F, out);
@@ -287,7 +310,7 @@ void launch_terms(const float* X, int n, int f, const Records& F, bool tree_para
   }
   long long blocks = ((long long)n + kTileRows - 1) / kTileRows;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (f <= kMaxTileFeatures) {
+  if (v == kTile) {
     path_rows_kernel<kMean, kTerms, true>
         <<<(int)blocks, kThreads, (size_t)f * kTileRows * sizeof(float), s>>>(X, n, f, F, out);
   } else {
@@ -297,7 +320,7 @@ void launch_terms(const float* X, int n, int f, const Records& F, bool tree_para
 
 template <bool kMean>
 int launch(const void* X, int n, int f, const void* records, int r, const void* roots, int t, int k,
-           int terms_per_chunk, int tree_parallel, void* out, void* stream) {
+           int terms_per_chunk, int tree_parallel, void* out, void* stream, int* variant) {
   const int chunk_terms = k == 0 ? 0 : terms_per_chunk;
   if (n < 0 || f <= 0 || r < 0 || t <= 0 || k < 0 || (k > 0 && chunk_terms != 2 && chunk_terms != 3))
     return (int)cudaErrorInvalidValue;
@@ -307,16 +330,20 @@ int launch(const void* X, int n, int f, const void* records, int r, const void* 
   const float* x = static_cast<const float*>(X);
   float* o = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool small = tree_parallel != 0;
+  long long staged = 0;
+  size_t bytes = 0;
+  const Variant v = choose(n, f, r, k, tree_parallel != 0, &staged, &bytes);
   switch (chunk_terms) {
     case 0:  // header-only records: the standard walk, a sum
       if constexpr (kMean) return (int)cudaErrorInvalidValue;
-      else if (small || !launch_staged(x, n, f, F, r, o, s)) launch_terms<false, 0>(x, n, f, F, small, o, s);
+      else if (v == kStaged) walk_staged_kernel<<<(int)staged, kStageThreads, bytes, s>>>(x, n, f, F, r, o);
+      else launch_terms<false, 0>(x, n, f, F, v, o, s);
       break;
-    case 3: launch_terms<kMean, 3>(x, n, f, F, small, o, s); break;
-    case 2: launch_terms<kMean, 2>(x, n, f, F, small, o, s); break;
+    case 3: launch_terms<kMean, 3>(x, n, f, F, v, o, s); break;
+    case 2: launch_terms<kMean, 2>(x, n, f, F, v, o, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  *variant = v;
   return (int)cudaGetLastError();
 }
 
@@ -327,27 +354,41 @@ int launch(const void* X, int n, int f, const void* records, int r, const void* 
 // them, with k terms at most per record (0: header-only standard records),
 // terms_per_chunk (3 or 2) to a chunk; tree_parallel != 0 takes the
 // small-batch kernel (one warp a row); out f32[n]. Each launches on
-// `stream` and returns cudaGetLastError() of the launch.
+// `stream`, writes the Variant it launched to *variant (nothing for n = 0,
+// which launches nothing) and returns cudaGetLastError() of the launch.
 
 // Sum over trees of each row's path length through a standard forest.
 extern "C" int walk_sum(const void* X, int n, int f, const void* records, int r, const void* roots, int t,
-                        int k, int terms_per_chunk, int tree_parallel, void* out, void* stream) {
+                        int k, int terms_per_chunk, int tree_parallel, void* out, void* stream,
+                        int* variant) {
   if (k != 0) return (int)cudaErrorInvalidValue;
-  return launch<false>(X, n, f, records, r, roots, t, k, terms_per_chunk, tree_parallel, out, stream);
+  return launch<false>(X, n, f, records, r, roots, t, k, terms_per_chunk, tree_parallel, out, stream, variant);
 }
 
 // Sum over trees of each row's path length through an EIF, in the walk
 // kernel's dot order.
 extern "C" int ext_walk_sum(const void* X, int n, int f, const void* records, int r, const void* roots, int t,
-                            int k, int terms_per_chunk, int tree_parallel, void* out, void* stream) {
+                            int k, int terms_per_chunk, int tree_parallel, void* out, void* stream,
+                            int* variant) {
   if (k <= 0) return (int)cudaErrorInvalidValue;
-  return launch<false>(X, n, f, records, r, roots, t, k, terms_per_chunk, tree_parallel, out, stream);
+  return launch<false>(X, n, f, records, r, roots, t, k, terms_per_chunk, tree_parallel, out, stream, variant);
 }
 
 // Mean path length over trees (sum of pl / t in tree order), in the sparse
 // kernel's dot order.
 extern "C" int ext_sparse_mean(const void* X, int n, int f, const void* records, int r, const void* roots,
-                               int t, int k, int terms_per_chunk, int tree_parallel, void* out, void* stream) {
+                               int t, int k, int terms_per_chunk, int tree_parallel, void* out, void* stream,
+                               int* variant) {
   if (k <= 0) return (int)cudaErrorInvalidValue;
-  return launch<true>(X, n, f, records, r, roots, t, k, terms_per_chunk, tree_parallel, out, stream);
+  return launch<true>(X, n, f, records, r, roots, t, k, terms_per_chunk, tree_parallel, out, stream, variant);
+}
+
+// The Variant the three entries would launch for these arguments, in
+// *variant; launches nothing.
+extern "C" int path_variant(int n, int f, int r, int k, int tree_parallel, int* variant) {
+  if (n <= 0 || f <= 0 || r < 0 || k < 0) return (int)cudaErrorInvalidValue;
+  long long staged = 0;
+  size_t bytes = 0;
+  *variant = choose(n, f, r, k, tree_parallel != 0, &staged, &bytes);
+  return 0;
 }

@@ -21,7 +21,8 @@ EIF node when its hyperplane dot ``>= offset`` (NaN goes left). The EIF
 kernels differ in the dot order (:func:`hyperplane_dot`) and the sum order
 (a sum over trees, or ``acc += pl / T``). :func:`path_sum_plain` walks the
 same records in plain PyTorch; :func:`launch` is the one place a kernel of
-the core is launched, and counts it.
+the core is launched, and counts it, in total and by the launch the kernel
+took (:data:`VARIANTS`).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..telemetry.metrics import counter as _telemetry_counter
 from ..utils.math import fma_f32
 from . import _build
 
@@ -48,10 +50,18 @@ TREE_PARALLEL_MAX_ROWS = {"walk_sum": 98_304, "ext_walk_sum": 1 << 16, "ext_spar
 # Trees a round of the small-batch kernel: one a lane of a warp.
 WARP_TREES = 32
 
+KERNELS = ("walk_sum", "ext_walk_sum", "ext_sparse_mean")
+
+# The launches a kernel of the core may take, by the code its entry reports
+# (csrc/path_walk.cu, ``Variant``): the standard walk's records and row tile
+# in shared memory; the row tile there and the records through __ldg; rows
+# too wide for the tile read through L1; one warp a row.
+VARIANTS = ("staged", "tile", "global", "trees")
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-SIGNATURES = {name: (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P)
-              for name in ("walk_sum", "ext_walk_sum", "ext_sparse_mean")}
+SIGNATURES = {**{name: (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P) for name in KERNELS},
+              "path_variant": (_I, _I, _I, _I, _I, _P)}
 
 # The widest row whose feature indices fit a record's 10-bit fields.
 PACKED_MAX_FEATURES = 1 << 10
@@ -243,15 +253,26 @@ def check_records(X: torch.Tensor, p: PathRecords, what: str) -> None:
         raise ValueError(f"{what} takes fewer than 2^31 rows and records")
 
 
-# Launches of each kernel of csrc/path_walk.cu, counted where they happen.
-launches = {name: 0 for name in SIGNATURES}
+# Launches of each kernel of csrc/path_walk.cu, counted where they happen:
+# in all, and by the launch taken.
+launches = {name: 0 for name in KERNELS}
+variant_launches = {name: dict.fromkeys(VARIANTS, 0) for name in KERNELS}
+
+_WALK_LAUNCHES_TOTAL = _telemetry_counter(
+    "isoforest_walk_launches_total",
+    "Launches of the path-walk kernels, by kernel and by the launch taken (staged, tile, global, trees)",
+    labelnames=("kernel", "variant"),
+)
 
 
 def launch(name: str, X: torch.Tensor, p: PathRecords, tree_parallel: Optional[bool] = None) -> torch.Tensor:
     """Launch kernel ``name`` of ``csrc/path_walk.cu`` on CUDA ``X``, ``f32[N]``,
-    and count it in ``launches[name]``. ``tree_parallel``: the small-batch
-    kernel (default: at most ``TREE_PARALLEL_MAX_ROWS[name]`` rows); the wrappers
-    take the default, a caller that compares the two sides names one."""
+    and count it in ``launches[name]``, in ``variant_launches[name]`` under
+    the launch it took and in ``isoforest_walk_launches_total{kernel,
+    variant}`` (with telemetry on). ``tree_parallel``: the small-batch
+    kernel (default: at most ``TREE_PARALLEL_MAX_ROWS[name]`` rows); the
+    wrappers take the default, a caller that compares the two sides names
+    one."""
     n, f = X.shape
     out = torch.empty(n, dtype=torch.float32, device=X.device)
     if n == 0:
@@ -261,11 +282,38 @@ def launch(name: str, X: torch.Tensor, p: PathRecords, tree_parallel: Optional[b
     if tree_parallel is None:
         tree_parallel = n <= TREE_PARALLEL_MAX_ROWS[name]
     lib = _build.load("path_walk", SIGNATURES)
+    taken = ctypes.c_int(-1)
     err = getattr(lib, name)(
         X.data_ptr(), n, f, p.records.data_ptr(), p.records.shape[0], p.roots.data_ptr(),
         p.num_trees, p.k, p.chunk_terms, int(tree_parallel), out.data_ptr(),
-        torch.cuda.current_stream(X.device).cuda_stream,
+        torch.cuda.current_stream(X.device).cuda_stream, ctypes.byref(taken),
     )
     _build.check(err, name)
+    variant = VARIANTS[taken.value]
     launches[name] += 1
+    variant_launches[name][variant] += 1
+    _WALK_LAUNCHES_TOTAL.inc(kernel=name, variant=variant)
     return out
+
+
+def launch_variant(name: str, n: int, f: int, p: PathRecords) -> str:
+    """The launch (one of :data:`VARIANTS`) that :func:`launch` of kernel
+    ``name`` takes by default for ``n`` > 0 rows of width ``f`` over ``p`` on
+    the current card, as the kernel's entry chooses it; launches nothing."""
+    lib = _build.load("path_walk", SIGNATURES)
+    code = ctypes.c_int(-1)
+    _build.check(lib.path_variant(n, f, p.records.shape[0], p.k, int(n <= TREE_PARALLEL_MAX_ROWS[name]),
+                                  ctypes.byref(code)), "path_variant")
+    return VARIANTS[code.value]
+
+
+def span_attrs(name: str, p: PathRecords, rows: int, width: int, device: torch.device) -> dict:
+    """What a scoring call through kernel ``name`` records on its span:
+    ``walk_records_bytes``, the records' bytes, and ``walk_variant``, the
+    launch a chunk of ``rows`` rows of width ``width`` takes
+    (:func:`launch_variant`; ``plain`` on the CPU, which runs the plain
+    version; none for no rows)."""
+    attrs = {"walk_records_bytes": p.records.numel() * p.records.element_size()}
+    if rows > 0:
+        attrs["walk_variant"] = launch_variant(name, rows, width, p) if device.type == "cuda" else "plain"
+    return attrs

@@ -46,7 +46,7 @@ from ..utils import monitoring
 from ..utils.device import resolve_device
 from ..utils.math import fma_f32, height_of, score_from_path_length
 from ..utils.validation import check_nonfinite_policy, extract_features, validate_feature_vector_size
-from . import dense, ext_dense, ext_walk, walk
+from . import dense, ext_dense, ext_path, ext_walk, walk
 from .streaming import StreamingExecutor, pipeline_enabled, resolve_chunk_rows
 from .ext_growth import ExtendedForest
 from .scoring_layout import (
@@ -455,7 +455,10 @@ def score_matrix(
     """Outlier scores ``2^(-E[h]/c(num_samples))`` of an ``[N, F]`` matrix,
     ``f32[N]`` on ``device``, inside a ``score_matrix`` span marked in
     stages: ``prepare`` (conversion, width checks, the strategy, the
-    executor), ``execute`` and ``finish`` (the counters, the ``exp2``).
+    executor), ``execute`` and ``finish`` (the counters, the ``exp2``). A
+    call through the walk kernels records on the span the records' bytes
+    and the launch its first chunk takes (``walk_records_bytes``,
+    ``walk_variant``: :func:`.ext_path.span_attrs`).
 
     ``forest``: a :class:`StandardForest` or an :class:`ExtendedForest`.
     ``X`` (tensor, array or DataFrame) is converted and checked by
@@ -529,6 +532,10 @@ def score_matrix(
             forest, strategy, device=dev, cache=cache, rows=n, chunk_rows=chunk, pipeline=pipeline,
             site="score_matrix", timeout_s=timeout_s, nonfinite=nonfinite, nonfinite_counts=None,
         )
+        if strategy == "walk" and _telemetry_state.enabled():
+            kernel = "ext_walk_sum" if isinstance(forest, ExtendedForest) else "walk_sum"
+            _set_span_attrs(**ext_path.span_attrs(kernel, scoring_tables(forest, strategy, dev, cache),
+                                                  min(n, chunk), int(X.shape[1]), dev))
         sp.mark("execute")
         t0 = time.perf_counter()
         path_lengths = executor.execute(X)

@@ -178,11 +178,11 @@ TWO_ROW_WALK = """    const long long row0 = base + threadIdx.x, row1 = row0 + k
 
 # The standard walk's bulk launch: the staged kernel where it fits, else the
 # core's bulk kernel through __ldg.
-THROUGH_LDG = ("else if (small || !launch_staged(x, n, f, F, r, o, s))", "else")
+THROUGH_LDG = ("  if (k == 0 && (*staged = staged_blocks(n, f, r, bytes)) > 0) return kStaged;\n", "")
 
 # variant -> (library, calls it is timed on, [(text in the source, replacement), ...])
 VARIANTS = {
-    "path_x_through_l1": ("path_walk", EIF_PATH_CALLS, [("  if (f <= kMaxTileFeatures) {\n", "  if (false) {\n")]),
+    "path_x_through_l1": ("path_walk", EIF_PATH_CALLS, [("  return f <= kMaxTileFeatures ? kTile : kGlobal;\n", "  return kGlobal;\n")]),
     "path_2_rows_per_thread": ("path_walk", EIF_PATH_CALLS, [
         ("constexpr int kTileRows = kThreads;", "constexpr int kTileRows = 2 * kThreads;"),
         (ONE_ROW_WALK, TWO_ROW_WALK),
