@@ -4736,8 +4736,9 @@ def main() -> int:
                     *(float((ext_path.launch("walk_sum", xe, wte, tree_parallel=small) - want).abs().max())
                       for small in (False, True)))
         g_err = float((walk.path_lengths_walk(xe, wte) - standard_path_lengths(forest, xe)).abs().max())
-        # shared memory a staged walk block would take (it stages where two
-        # blocks fit an SM, at most 113 KB each on the H100, and F <= 48)
+        # shared memory a staged walk block would take with the whole forest
+        # as one group (a group's records and the row tile: two blocks an SM,
+        # at most 113 KB each on the H100, and F <= 48)
         row = dict(case, trees=trees, walk_records=wte.records.shape[0],
                    walk_staged_block_bytes=wte.records.numel() * 4 + case["features"] * 1024 * 4,
                    walk_vs_plain=w_err, walk_vs_gather=g_err)

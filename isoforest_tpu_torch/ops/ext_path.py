@@ -16,6 +16,12 @@ float32 bits of a leaf's path length (``depth + c(numInstances)``, +0.0 at a
 hole), so a leaf costs the kernel no load. ``roots[t]`` is tree t's root
 code.
 
+The standard walk's bulk launch stages a forest's records in shared memory
+a group of whole consecutive trees at a time, in tree order
+(:func:`walk_groups`): each group within the records a block holds beside
+its row tile on the card (``walk_staged_budget`` of the library), cut on
+the host once a forest and width and passed to every launch.
+
 A standard node sends the row right when ``x[feature] >= threshold``, an
 EIF node when its hyperplane dot ``>= offset`` (NaN goes left). The EIF
 kernels differ in the dot order (:func:`hyperplane_dot`) and the sum order
@@ -32,6 +38,7 @@ from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..telemetry.metrics import counter as _telemetry_counter
 from ..utils.math import fma_f32
@@ -53,15 +60,17 @@ WARP_TREES = 32
 KERNELS = ("walk_sum", "ext_walk_sum", "ext_sparse_mean")
 
 # The launches a kernel of the core may take, by the code its entry reports
-# (csrc/path_walk.cu, ``Variant``): the standard walk's records and row tile
-# in shared memory; the row tile there and the records through __ldg; rows
-# too wide for the tile read through L1; one warp a row.
+# (csrc/path_walk.cu, ``Variant``): the standard walk's records, a group of
+# trees at a time, and its row tile in shared memory; the row tile there and
+# the records through __ldg; rows too wide for the tile read through L1; one
+# warp a row.
 VARIANTS = ("staged", "tile", "global", "trees")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-SIGNATURES = {**{name: (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P) for name in KERNELS},
-              "path_variant": (_I, _I, _I, _I, _I, _P)}
+SIGNATURES = {**{name: (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P) for name in KERNELS},
+              "path_variant": (_I, _I, _I, _I, _I, _I, _P, _I, _P),
+              "walk_staged_budget": (_I, _P)}
 
 # The widest row whose feature indices fit a record's 10-bit fields.
 PACKED_MAX_FEATURES = 1 << 10
@@ -253,6 +262,62 @@ def check_records(X: torch.Tensor, p: PathRecords, what: str) -> None:
         raise ValueError(f"{what} takes fewer than 2^31 rows and records")
 
 
+def tree_first_records(roots: np.ndarray, records: int) -> np.ndarray:
+    """Each tree's first record, then ``records``, int64 ``[T + 1]``: tree t's
+    records are ``[first[t], first[t + 1])`` (records are tree-major, a
+    tree's root first; a single-leaf tree has none)."""
+    roots = np.asarray(roots, np.int64)
+    first = np.where(roots < 0, ~roots, records)
+    first = np.minimum.accumulate(first[::-1])[::-1]  # a single-leaf tree starts where the next one does
+    return np.append(first, records)
+
+
+def walk_groups(first: np.ndarray, budget: int) -> Optional[np.ndarray]:
+    """The staged walk's groups of whole consecutive trees, in tree order,
+    each as many trees as fit ``budget`` records, int32 ``[2, G + 1]``: the
+    first tree of each group, then T, and its first record, then the
+    records' count; ``first`` as :func:`tree_first_records` gives it. None
+    where a tree alone holds more than ``budget`` records (or ``budget`` <
+    0): such a forest is not staged."""
+    first = np.asarray(first, np.int64)
+    if budget < 0 or (np.diff(first) > budget).any():
+        return None
+    trees = [0]
+    while trees[-1] < len(first) - 1:
+        trees.append(int(np.searchsorted(first, first[trees[-1]] + budget, side="right")) - 1)
+    return np.ascontiguousarray(np.stack([trees, first[trees]]), dtype=np.int32)
+
+
+# The staged walk's budget in records, by (device index, row width), and
+# each forest's groups by budget, keyed by its roots: each computed once.
+_BUDGETS: dict = {}
+_GROUPS = WeakIdKeyDictionary()
+
+
+def staged_groups(lib, p: PathRecords, f: int) -> Optional[np.ndarray]:
+    """:func:`walk_groups` of standard records ``p`` within the budget that
+    ``lib``'s ``walk_staged_budget`` gives rows of width ``f`` on the card
+    the records are on, cached; None for an EIF (never staged) or where no
+    group fits."""
+    if p.k != 0:
+        return None
+    key = (p.records.device.index, f)
+    budget = _BUDGETS.get(key)
+    if budget is None:
+        out = ctypes.c_int(-1)
+        _build.check(lib.walk_staged_budget(f, ctypes.byref(out)), "walk_staged_budget")
+        budget = _BUDGETS[key] = out.value
+    by_budget = _GROUPS.setdefault(p.roots, {})
+    if budget not in by_budget:
+        by_budget[budget] = walk_groups(tree_first_records(p.roots.cpu().numpy(), p.records.shape[0]), budget)
+    return by_budget[budget]
+
+
+def _groups_args(groups: Optional[np.ndarray]):
+    """A group table as the entries take it: its host pointer and count."""
+    return (None, 0) if groups is None else (groups.ctypes.data, groups.shape[1] - 1)
+
+
 # Launches of each kernel of csrc/path_walk.cu, counted where they happen:
 # in all, and by the launch taken.
 launches = {name: 0 for name in KERNELS}
@@ -272,7 +337,8 @@ def launch(name: str, X: torch.Tensor, p: PathRecords, tree_parallel: Optional[b
     variant}`` (with telemetry on). ``tree_parallel``: the small-batch
     kernel (default: at most ``TREE_PARALLEL_MAX_ROWS[name]`` rows); the
     wrappers take the default, a caller that compares the two sides names
-    one."""
+    one. A bulk launch of the standard walk passes the forest's groups
+    (:func:`staged_groups`)."""
     n, f = X.shape
     out = torch.empty(n, dtype=torch.float32, device=X.device)
     if n == 0:
@@ -282,10 +348,11 @@ def launch(name: str, X: torch.Tensor, p: PathRecords, tree_parallel: Optional[b
     if tree_parallel is None:
         tree_parallel = n <= TREE_PARALLEL_MAX_ROWS[name]
     lib = _build.load("path_walk", SIGNATURES)
+    groups = None if tree_parallel else staged_groups(lib, p, f)
     taken = ctypes.c_int(-1)
     err = getattr(lib, name)(
         X.data_ptr(), n, f, p.records.data_ptr(), p.records.shape[0], p.roots.data_ptr(),
-        p.num_trees, p.k, p.chunk_terms, int(tree_parallel), out.data_ptr(),
+        p.num_trees, p.k, p.chunk_terms, int(tree_parallel), *_groups_args(groups), out.data_ptr(),
         torch.cuda.current_stream(X.device).cuda_stream, ctypes.byref(taken),
     )
     _build.check(err, name)
@@ -296,24 +363,35 @@ def launch(name: str, X: torch.Tensor, p: PathRecords, tree_parallel: Optional[b
     return out
 
 
-def launch_variant(name: str, n: int, f: int, p: PathRecords) -> str:
+def variant_and_groups(name: str, n: int, f: int, p: PathRecords):
     """The launch (one of :data:`VARIANTS`) that :func:`launch` of kernel
     ``name`` takes by default for ``n`` > 0 rows of width ``f`` over ``p`` on
-    the current card, as the kernel's entry chooses it; launches nothing."""
+    the current card, as the kernel's entry chooses it, and the groups it
+    passes (None: none); launches nothing."""
     lib = _build.load("path_walk", SIGNATURES)
+    small = n <= TREE_PARALLEL_MAX_ROWS[name]
+    groups = None if small else staged_groups(lib, p, f)
     code = ctypes.c_int(-1)
-    _build.check(lib.path_variant(n, f, p.records.shape[0], p.k, int(n <= TREE_PARALLEL_MAX_ROWS[name]),
+    _build.check(lib.path_variant(n, f, p.records.shape[0], p.num_trees, p.k, int(small), *_groups_args(groups),
                                   ctypes.byref(code)), "path_variant")
-    return VARIANTS[code.value]
+    return VARIANTS[code.value], groups
+
+
+def launch_variant(name: str, n: int, f: int, p: PathRecords) -> str:
+    """The launch :func:`variant_and_groups` names."""
+    return variant_and_groups(name, n, f, p)[0]
 
 
 def span_attrs(name: str, p: PathRecords, rows: int, width: int, device: torch.device) -> dict:
     """What a scoring call through kernel ``name`` records on its span:
-    ``walk_records_bytes``, the records' bytes, and ``walk_variant``, the
+    ``walk_records_bytes``, the records' bytes; ``walk_variant``, the
     launch a chunk of ``rows`` rows of width ``width`` takes
     (:func:`launch_variant`; ``plain`` on the CPU, which runs the plain
-    version; none for no rows)."""
+    version); ``walk_groups``, the groups of trees that launch stages (0
+    where it stages nothing); the last two none for no rows."""
     attrs = {"walk_records_bytes": p.records.numel() * p.records.element_size()}
     if rows > 0:
-        attrs["walk_variant"] = launch_variant(name, rows, width, p) if device.type == "cuda" else "plain"
+        variant, groups = variant_and_groups(name, rows, width, p) if device.type == "cuda" else ("plain", None)
+        attrs["walk_variant"] = variant
+        attrs["walk_groups"] = groups.shape[1] - 1 if variant == "staged" else 0
     return attrs

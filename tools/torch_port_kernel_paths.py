@@ -8,6 +8,7 @@ CUDA toolkit::
     python3 tools/torch_port_kernel_paths.py --extract-old REV   # where git is
     python3 tools/torch_port_kernel_paths.py
     python3 tools/torch_port_kernel_paths.py --dense-table   # the dense-table kernel alone
+    python3 tools/torch_port_kernel_paths.py --grouped-walk  # the staged standard walk's groups alone
 
 ``--extract-old REV`` writes the package and ``chip_smoke.py`` as they
 were at git revision ``REV`` to ``build/kernel_paths/old/`` and exits; the
@@ -66,6 +67,23 @@ committed). The small-batch switch point of the path kernels: each
 kernel's bulk launch (a thread a row) against its small-batch launch (a
 warp a row), in turns and bitwise equal, on the first 1 to 262,144 of the
 rows.
+
+``--grouped-walk`` times the standard walk's staged launch, which stages a
+forest's records in shared memory a group of whole trees at a time, on
+2^19 rows and the forests of the benchmark's ``kddhttp-std1k`` configuration
+at a seed (``portbench/inputs.py``; 1000 trees, about ten groups, and its
+first 100 trees, one group), in turns and bitwise equal: against the same
+library's ``tile`` launch (no groups passed) and against the earlier
+tree's ``csrc/path_walk.cu`` (``--extract-old REV`` first), whose staged
+walk took only a forest that fit whole, at 100 trees one launch at a time
+and ten back to back (the card then hides each launch's host work), and
+with room for 128 groups in the kernel's parameters instead of 16; with
+groups of half the budget against the full budget; and two variants of the
+kernel, each at the groups its own budget gives: the next group fetched
+with ``cp.async`` into a second buffer while the current one is walked
+(half the budget a buffer, ``PREFETCH_WALK``), and one pass over the
+groups for two of a block's row tiles at once, an accumulator each in
+registers (``TWO_TILE_WALK``).
 
 It also traces one warm ``model.score`` of the standard and of the EIF
 fixture model, in turns, and reports whether each trace holds the
@@ -178,7 +196,150 @@ TWO_ROW_WALK = """    const long long row0 = base + threadIdx.x, row1 = row0 + k
 
 # The standard walk's bulk launch: the staged kernel where it fits, else the
 # core's bulk kernel through __ldg.
-THROUGH_LDG = ("  if (k == 0 && (*staged = staged_blocks(n, f, r, bytes)) > 0) return kStaged;\n", "")
+THROUGH_LDG = ("  if (k == 0 && (*staged = staged_blocks(n, f, groups, n_groups, r_max, bytes)) > 0) return kStaged;\n",
+               "")
+
+# The staged standard walk's kernel as committed, and two variants of it for
+# --grouped-walk: the next group fetched with cp.async into a second buffer
+# while the current one is walked, and one pass over the groups for two of
+# a block's row tiles at once.
+STAGED_WALK_START = "__global__ void __launch_bounds__(kStageThreads, 2)\nwalk_staged_kernel("
+STAGED_WALK_END = "\n// The launch a batch takes"
+STAGED_BYTES = "return (size_t)r * sizeof(int4) + (size_t)f * kStageThreads * sizeof(float);"
+PREFETCH_WALK = """__global__ void __launch_bounds__(kStageThreads, 2)
+walk_staged_kernel(const float* __restrict__ X, int n, int f_count, Records F, Groups G, int r_max, bool carry,
+                   float* __restrict__ out) {
+  extern __shared__ int4 rec_s[];
+  float* x_s = reinterpret_cast<float*>(rec_s + 2 * r_max);
+  const auto stage = [&](int g) {  // into buffer g & 1, asynchronously
+    const int4* src = F.rec + G.record[g];
+    int4* dst = rec_s + (g & 1) * r_max;
+    const int r = G.record[g + 1] - G.record[g];
+    for (int i = threadIdx.x; i < r; i += kStageThreads) __pipeline_memcpy_async(dst + i, src + i, sizeof(int4));
+    __pipeline_commit();
+  };
+  const bool once = G.count == 1;
+  if (once) stage(0);
+  for (long long base = (long long)blockIdx.x * kStageThreads; base < n;
+       base += (long long)gridDim.x * kStageThreads) {
+    __syncthreads();
+    const long long here = n - base < kStageThreads ? n - base : kStageThreads;
+    const float* src = X + base * f_count;
+    for (int i = threadIdx.x; i < kStageThreads * f_count; i += kStageThreads) {
+      const int j = i / f_count;
+      x_s[(i - j * f_count) * kStageThreads + j] = j < here ? src[i] : 0.f;
+    }
+    if (!once) stage(0);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    const long long row = base + threadIdx.x;
+    const bool live = row < n;
+    const float* xs = x_s + threadIdx.x;
+    float acc = carry && live ? out[row] : 0.f;
+    for (int g = 0; g < G.count; ++g) {
+      if (g + 1 < G.count) stage(g + 1);
+      if (live) {
+        const int4* rs = rec_s + (g & 1) * r_max;
+        const int r0 = G.record[g];
+        for (int t = G.tree[g]; t < G.tree[g + 1]; ++t) {
+          int code = F.roots[t];
+          while (code < 0) {
+            const int4 head = rs[~code - r0];
+            code = xs[head.w * kStageThreads] >= __int_as_float(head.x) ? head.z : head.y;
+          }
+          acc += __int_as_float(code);
+        }
+      }
+      if (g + 1 < G.count) {
+        __pipeline_wait_prior(0);
+        __syncthreads();  // group g + 1 is staged; group g is no longer read
+      }
+    }
+    if (live) out[row] = acc;
+  }
+}
+"""
+TWO_TILE_WALK = """constexpr int kPassTiles = 2;
+
+__global__ void __launch_bounds__(kStageThreads, 2)
+walk_staged_kernel(const float* __restrict__ X, int n, int f_count, Records F, Groups G, int r_max, bool carry,
+                   float* __restrict__ out) {
+  extern __shared__ int4 rec_s[];
+  float* x_s = reinterpret_cast<float*>(rec_s + r_max);
+  const auto stage = [&](int g) {
+    const int4* src = F.rec + G.record[g];
+    const int r = G.record[g + 1] - G.record[g];
+    for (int i = threadIdx.x; i < r; i += kStageThreads) rec_s[i] = __ldg(src + i);
+  };
+  const bool once = G.count == 1;
+  if (once) stage(0);
+  const long long stride = (long long)gridDim.x * kStageThreads;
+  for (long long base = (long long)blockIdx.x * kStageThreads; base < n; base += stride * kPassTiles) {
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < kPassTiles; ++p) {
+      const long long b = base + p * stride;
+      const long long here = b >= n ? 0 : (n - b < kStageThreads ? n - b : kStageThreads);
+      const float* src = X + b * f_count;
+      float* xp = x_s + p * f_count * kStageThreads;
+      for (int i = threadIdx.x; i < kStageThreads * f_count; i += kStageThreads) {
+        const int j = i / f_count;
+        xp[(i - j * f_count) * kStageThreads + j] = j < here ? src[i] : 0.f;
+      }
+    }
+    if (!once) stage(0);
+    __syncthreads();
+    float acc[kPassTiles];
+#pragma unroll
+    for (int p = 0; p < kPassTiles; ++p) {
+      const long long row = base + p * stride + threadIdx.x;
+      acc[p] = carry && row < n ? out[row] : 0.f;
+    }
+    for (int g = 0; g < G.count; ++g) {
+      if (g > 0) {
+        __syncthreads();
+        stage(g);
+        __syncthreads();
+      }
+      const int r0 = G.record[g];
+#pragma unroll
+      for (int p = 0; p < kPassTiles; ++p) {
+        if (base + p * stride + threadIdx.x >= n) continue;
+        const float* xs = x_s + p * f_count * kStageThreads + threadIdx.x;
+        for (int t = G.tree[g]; t < G.tree[g + 1]; ++t) {
+          int code = F.roots[t];
+          while (code < 0) {
+            const int4 head = rec_s[~code - r0];
+            code = xs[head.w * kStageThreads] >= __int_as_float(head.x) ? head.z : head.y;
+          }
+          acc[p] += __int_as_float(code);
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < kPassTiles; ++p) {
+      const long long row = base + p * stride + threadIdx.x;
+      if (row < n) out[row] = acc[p];
+    }
+  }
+}
+"""
+# variant -> [(text in csrc/path_walk.cu, replacement), ...]; "KERNEL" stands
+# for the committed staged kernel's whole text
+GROUPED_VARIANTS = {
+    "walk_staged_prefetch": [
+        ("#include <cuda_runtime.h>\n", "#include <cuda_runtime.h>\n#include <cuda_pipeline.h>\n"),
+        ("KERNEL", PREFETCH_WALK),
+        (STAGED_BYTES, STAGED_BYTES.replace("(size_t)r *", "(size_t)2 * r *")),
+    ],
+    "walk_staged_two_tiles": [
+        ("KERNEL", TWO_TILE_WALK),
+        (STAGED_BYTES, STAGED_BYTES.replace("(size_t)f *", "(size_t)kPassTiles * f *")),
+    ],
+    "walk_staged_128_groups": [("constexpr int kMaxGroups = 16;", "constexpr int kMaxGroups = 128;")],
+}
+# the benchmark's configuration whose forest --grouped-walk times, at a seed
+GROUPED_CELL, GROUPED_SEED, GROUPED_ROWS = "kddhttp-std1k.resident-10m", 2147483723, 1 << 19
 
 # variant -> (library, calls it is timed on, [(text in the source, replacement), ...])
 VARIANTS = {
@@ -358,13 +519,25 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def in_turns(first: str, first_call, second: str, second_call, reps: int) -> dict:
+def repeated(call, times: int):
+    """``call`` made ``times`` times over, back to back; the last result."""
+    def run():
+        for _ in range(times - 1):
+            call()
+        return call()
+
+    return run
+
+
+def in_turns(first: str, first_call, second: str, second_call, reps: int, rounds: int = 1) -> dict:
     """Results and CUDA-event times of two calls, in turns (first, second,
-    second, first); raises unless the results are equal bit for bit."""
+    second, first), ``rounds`` times over; raises unless the results are
+    equal bit for bit."""
     import torch
 
     runs, outputs = {first: [], second: []}, {}
-    for which, call in ((first, first_call), (second, second_call), (second, second_call), (first, first_call)):
+    turn = ((first, first_call), (second, second_call), (second, second_call), (first, first_call))
+    for which, call in turn * rounds:
         outputs[which] = call()
         runs[which].append(time_ms(call, reps))
     equal = bool(torch.equal(outputs[first], outputs[second]))
@@ -621,6 +794,148 @@ def trace_copies(X_big, std_model, eif_model) -> None:
               "htod_in_trace": any("HtoD" in k for k in device), "copy_alone_ms": copy_ms})
 
 
+def build_grouped_variants() -> dict:
+    """``{variant: path}``: the grouped-walk variants of the committed
+    ``csrc/path_walk.cu`` and the earlier tree's (``old_path_walk``), all
+    nvcc started together; a variant or the earlier tree that does not
+    build stops the run."""
+    from isoforest_tpu_torch.ops import _build
+
+    VARIANT_DIR.mkdir(parents=True, exist_ok=True)
+    committed = (_build.CSRC_DIR / _build.SOURCES["path_walk"]).read_text()
+    start, end = committed.index(STAGED_WALK_START), committed.index(STAGED_WALK_END)
+    sources = {}
+    for variant, edits in GROUPED_VARIANTS.items():
+        edited = committed
+        for old, new in edits:
+            old = committed[start:end] if old == "KERNEL" else old
+            if edited.count(old) != 1:
+                raise SystemExit(f"path_walk.cu: the text to edit for {variant} is not there once: {old[:200]!r}")
+            edited = edited.replace(old, new)
+        src = VARIANT_DIR / f"path_walk-{variant}.cu"
+        src.write_text(edited)
+        sources[variant] = src
+    old_src = OLD_TREE / "isoforest_tpu_torch" / "csrc" / "path_walk.cu"
+    if not old_src.is_file():
+        raise SystemExit(f"{old_src} is missing: run with --extract-old REV where git is first")
+    sources["old_path_walk"] = old_src
+    procs = {}
+    for variant, src in sources.items():
+        lib = VARIANT_DIR / f"lib{variant}.so"
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
+        procs[variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for key, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {key}:\n{log}")
+        staged = [line for line in log.splitlines() if "walk_staged_kernel" in line or "spill" in line]
+        emit({"variant": key, "ptxas": staged[-3:]})
+        libs[key] = lib
+    return libs
+
+
+def grouped_walk() -> None:
+    """The staged standard walk's groups against the launches and designs
+    the module docstring names, on ``GROUPED_ROWS`` rows of the
+    ``GROUPED_CELL`` configuration at ``GROUPED_SEED``, in turns and
+    bitwise equal."""
+    import numpy as np
+    import torch
+
+    from isoforest_tpu_torch.ops import _build, ext_path, walk
+    from portbench import inputs, spec
+
+    libs = build_grouped_variants()
+    _build.build(["path_walk"])
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    signatures = dict(ext_path.SIGNATURES)
+    committed = load_variant(_build.library_path("path_walk"), signatures)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    old = load_variant(libs["old_path_walk"], {"walk_sum": (P, I, I, P, I, P, I, I, I, I, P, P, P)})
+    config = spec.load_cell(GROUPED_CELL).config
+    model = inputs.build_model(config, inputs.grow_forest(config, seed=GROUPED_SEED, device=dev), dev)
+    X = inputs.scored_rows(config, GROUPED_ROWS, seed=GROUPED_SEED, device=dev, place="device")
+    n, f = X.shape
+    forest = walk.walk_tables(model.forest)
+    first = ext_path.tree_first_records(forest.roots.cpu().numpy(), forest.records.shape[0])
+
+    def budget(lib):
+        out = ctypes.c_int(-1)
+        _build.check(lib.walk_staged_budget(f, ctypes.byref(out)), "walk_staged_budget")
+        return out.value
+
+    def first_trees(trees):
+        return forest._replace(records=forest.records[: first[trees]].contiguous(),
+                               roots=forest.roots[:trees].contiguous())
+
+    def call(lib, p, groups, variant):
+        def run():
+            out = torch.empty(n, dtype=torch.float32, device=dev)
+            taken = ctypes.c_int(-1)
+            _build.check(lib.walk_sum(X.data_ptr(), n, f, p.records.data_ptr(), p.records.shape[0],
+                                      p.roots.data_ptr(), p.num_trees, 0, 3, 0, *ext_path._groups_args(groups),
+                                      out.data_ptr(), stream, ctypes.byref(taken)), "walk_sum")
+            if ext_path.VARIANTS[taken.value] != variant:
+                raise SystemExit(f"the launch took {ext_path.VARIANTS[taken.value]}, not {variant}")
+            return out
+
+        return run
+
+    def old_call(p, variant):
+        def run():
+            out = torch.empty(n, dtype=torch.float32, device=dev)
+            taken = ctypes.c_int(-1)
+            _build.check(old.walk_sum(X.data_ptr(), n, f, p.records.data_ptr(), p.records.shape[0],
+                                      p.roots.data_ptr(), p.num_trees, 0, 3, 0, out.data_ptr(), stream,
+                                      ctypes.byref(taken)), "earlier walk_sum")
+            if ext_path.VARIANTS[taken.value] != variant:
+                raise SystemExit(f"the earlier launch took {ext_path.VARIANTS[taken.value]}, not {variant}")
+            return out
+
+        return run
+
+    full = budget(committed)
+    groups = ext_path.walk_groups(first, full)
+    one = int(np.searchsorted(first, full, side="right")) - 1  # the first trees that fit one group
+    small = first_trees(min(one, 100))
+    small_groups = ext_path.walk_groups(first[: small.num_trees + 1], full)
+    shape = {"rows": n, "features": f, "forest": f"{GROUPED_CELL} seed {GROUPED_SEED}", "budget": full,
+             "records": int(first[-1]), "trees": forest.num_trees}
+    emit({"grouped_walk": "groups", **shape, "groups": groups.shape[1] - 1,
+          "trees_a_group": np.diff(groups[0]).tolist(), "records_a_group": np.diff(groups[1]).tolist(),
+          "small_trees": small.num_trees, "small_records": int(first[small.num_trees])})
+    reps = 20
+    emit({"grouped_walk": "grouped_vs_tile", **shape, **in_turns(
+        "tile", call(committed, forest, None, "tile"), "staged", call(committed, forest, groups, "staged"), reps)})
+    emit({"grouped_walk": "grouped_vs_earlier_tile", **shape, **in_turns(
+        "earlier", old_call(forest, "tile"), "staged", call(committed, forest, groups, "staged"), reps)})
+    small_shape = {**shape, "trees": small.num_trees, "records": int(first[small.num_trees])}
+    emit({"grouped_walk": "one_group_vs_earlier_staged", **small_shape, **in_turns(
+        "earlier", old_call(small, "staged"), "committed", call(committed, small, small_groups, "staged"),
+        reps * 3, rounds=4)})
+    emit({"grouped_walk": "one_group_vs_earlier_staged_10_launches", **small_shape, **in_turns(
+        "earlier", repeated(old_call(small, "staged"), 10), "committed",
+        repeated(call(committed, small, small_groups, "staged"), 10), reps, rounds=4)})
+    emit({"grouped_walk": "one_group_vs_earlier_staged_128_groups_10_launches", **small_shape, **in_turns(
+        "earlier", repeated(old_call(small, "staged"), 10), "variant",
+        repeated(call(load_variant(libs["walk_staged_128_groups"], signatures), small, small_groups, "staged"), 10),
+        reps, rounds=4)})
+    half = ext_path.walk_groups(first, full // 2)
+    emit({"grouped_walk": "half_budget", **shape, "variant_groups": half.shape[1] - 1, **in_turns(
+        "committed", call(committed, forest, groups, "staged"), "variant", call(committed, forest, half, "staged"),
+        reps)})
+    for variant in GROUPED_VARIANTS:
+        if variant == "walk_staged_128_groups":
+            continue
+        lib = load_variant(libs[variant], signatures)
+        own = ext_path.walk_groups(first, budget(lib))
+        emit({"grouped_walk": variant, **shape, "variant_budget": budget(lib), "variant_groups": own.shape[1] - 1,
+              **in_turns("committed", call(committed, forest, groups, "staged"), "variant",
+                         call(lib, forest, own, "staged"), reps)})
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--extract-old":
         extract_old(sys.argv[2])
@@ -632,6 +947,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_port_kernel_paths: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--grouped-walk"]:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+        grouped_walk()
+        print(smi, flush=True)
+        return 0
     from isoforest_tpu_torch import load_model
     from isoforest_tpu_torch.ops import _build
 
